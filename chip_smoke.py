@@ -1,0 +1,344 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch port (tdeed_tpu_torch) on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Phases, each fatal on failure:
+  1. device: a CUDA card is required (no CPU path); prints the card's name
+     and power limit and the TF32 switches;
+  2. build: compiles the photometric kernel (csrc/photometric.cu) with nvcc;
+  3. kernel: the CUDA kernel against its plain PyTorch version on the card,
+     all 64 gate combinations (hue, saturation, brightness, contrast, blur,
+     flip), uint8 and bf16 input, 224x224 and 448x796; then both timed at
+     the flagship shape (8, 100, 224, 224, 3) bf16;
+  4. agreement: on a small input, one fp32 train step and one predict
+     call on the card against the same calls on the CPU, same weights and
+     random draws (the CPU path is the one held against the JAX package by
+     the tier-1 tests);
+  5. serve: FineDiving_small at full width with seeded random weights
+     answers 4-clip requests (100 frames of 256x256 uint8 each), plain and
+     with the hflip TTA;
+  6. train: 3 steps of the flagship training step (batch 8 x clip 100,
+     256x256 uint8 cropped to 224, mixup on, bf16 compute, AdamW), which
+     must go through the CUDA kernel.
+
+The line before the last is a JSON object with each kernel's route, the
+TPU kernel it replaces, its launches in phases 5-6, its largest error
+against the plain version and both times; the last line is
+{"ok": true, "device": {...}}. Without a CUDA device, or outside the
+repository, it exits non-zero and prints neither.
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+SEED = 0
+CONFIGS = str(Path(__file__).resolve().parent / "configs")
+BF16_ULP_AT_2 = 2.0 ** -6  # standardized outputs lie in about [-2.12, 2.64]
+COMPARE_SHAPES = ((224, 224), (448, 796))
+FLAGSHIP = (8, 100, 224, 224, 3)
+FRAME = 256  # request and training frames before the 224 crop
+REQUESTS = 3
+REQUEST_CLIPS = 4
+TRAIN_STEPS = 3
+
+
+def fail(msg: str) -> None:
+    print(f"chip_smoke: FAIL: {msg}", file=sys.stderr, flush=True)
+    sys.exit(1)
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def device_phase(torch):
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is False: this smoke run needs a CUDA GPU")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    log(f"[device] torch {torch.__version__} cuda {torch.version.cuda}; "
+        f"device count {torch.cuda.device_count()}")
+    log(f"[device] allow_tf32: matmul={torch.backends.cuda.matmul.allow_tf32} "
+        f"cudnn={torch.backends.cudnn.allow_tf32}")
+    log(smi)
+    return smi
+
+
+def build_phase():
+    from tdeed_tpu_torch.kernels.build import load
+
+    t0 = time.perf_counter()
+    built = load("photometric")
+    how = f"nvcc {built.seconds:.1f} s" if built.log else "reused from an earlier build"
+    log(f"[build] {built.path.name}: {how}, {time.perf_counter() - t0:.1f} s in all")
+    for line in built.log.splitlines():
+        if "registers" in line or "spill" in line:
+            log(f"[build] ptxas: {line.strip()}")
+
+
+def _gate_params(torch, generator, device):
+    """(64, 16) params: clip c turns on the gates named by the bits of c."""
+    from tdeed_tpu_torch.kernels.augment import sample_params
+
+    p = sample_params(generator, 64)
+    combos = torch.arange(64)
+    for bit, slot in enumerate((0, 2, 4, 6, 8, 14)):  # hue sat bri con blur flip
+        p[:, slot] = ((combos >> bit) & 1).float()
+    return p.to(device)
+
+
+def _check_close(torch, got, want, what):
+    g, w = got.float(), want.float()
+    err = (g - w).abs()
+    # 1 bf16 ulp at the value's magnitude, floored at 2^-16: near 0 the
+    # standardization (c - mean) / std cancels, and the fp32 rounding of c
+    # (the plain version on the card divides by a scalar as a multiply by
+    # its reciprocal) leaves ~1e-6 absolute there
+    mag = torch.maximum(g.abs(), w.abs()).clamp_min(2.0 ** -9)
+    bound = torch.exp2(torch.floor(torch.log2(mag)) - 7)
+    n_bad = int((err > bound).sum())
+    max_err, mean_err = float(err.max()), float(err.mean())
+    log(f"[kernel] {what}: max abs err {max_err:.6g}, mean {mean_err:.3g}, "
+        f"beyond 1 bf16 ulp: {n_bad} of {err.numel()}")
+    if n_bad or max_err > BF16_ULP_AT_2:
+        fail(f"photometric kernel disagrees with photometric_reference ({what})")
+    return max_err
+
+
+def _time_ms(torch, fn, iters):
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def kernel_phase(torch):
+    from tdeed_tpu_torch.kernels.augment import (
+        photometric,
+        photometric_reference,
+        sample_params,
+    )
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    params = _gate_params(torch, torch.Generator().manual_seed(SEED), dev)
+    max_err = 0.0
+    for h, w in COMPARE_SHAPES:
+        shape = (64, 2, h, w, 3)
+        u8 = torch.randint(0, 256, shape, generator=gen, device=dev, dtype=torch.uint8)
+        blend = (torch.rand(shape, generator=gen, device=dev) * 255).to(torch.bfloat16)
+        for name, frames in (("uint8", u8), ("bf16", blend)):
+            got = photometric(frames, params)
+            torch.cuda.synchronize()
+            want = photometric_reference(frames, params)
+            max_err = max(max_err, _check_close(
+                torch, got, want, f"{name} {h}x{w}, 64 gate combinations x 2 frames"))
+            del got, want
+        del u8, blend
+
+    frames = (torch.rand(FLAGSHIP, generator=gen, device=dev) * 255).to(torch.bfloat16)
+    p8 = sample_params(torch.Generator().manual_seed(SEED + 1), FLAGSHIP[0]).to(dev)
+    got = photometric(frames, p8)
+    torch.cuda.synchronize()
+    max_err = max(max_err, _check_close(
+        torch, got, photometric_reference(frames, p8), f"bf16 {FLAGSHIP}, sampled params"))
+    del got
+    ms = _time_ms(torch, lambda: photometric(frames, p8), 20)
+    plain_ms = _time_ms(torch, lambda: photometric_reference(frames, p8), 3)
+    ms2 = _time_ms(torch, lambda: photometric(frames, p8), 20)
+    moved = 2 * frames.numel() * 2  # bf16 in + bf16 out
+    log(f"[kernel] flagship {FLAGSHIP} bf16: kernel {ms:.3f} ms then {ms2:.3f} ms "
+        f"({moved / (min(ms, ms2) * 1e-3) / 1e9:.0f} GB/s of the 482 MB moved), "
+        f"plain PyTorch {plain_ms:.3f} ms")
+    return max_err, min(ms, ms2), plain_ms
+
+
+def _batch(torch, b, t, hw, n_classes_bg, gen, device):
+    def frames():
+        return torch.randint(0, 256, (b, t, hw, hw, 3), generator=gen,
+                             device=gen.device, dtype=torch.uint8).to(device)
+
+    def labels():
+        return torch.randint(0, n_classes_bg, (b, t), generator=gen,
+                             device=gen.device).to(device)
+
+    def displ():
+        return torch.randint(-2, 3, (b, t), generator=gen,
+                             device=gen.device).float().to(device)
+
+    return {"frame": frames(), "label": labels(), "labelD": displ(),
+            "frame2": frames(), "label2": labels(), "labelD2": displ()}
+
+
+def _trainer(torch, cfg, device, crop, seed):
+    from tdeed_tpu_torch.models.tdeed import build_model
+    from tdeed_tpu_torch.train.schedule import make_optimizer
+    from tdeed_tpu_torch.train.step import make_train_step
+
+    torch.manual_seed(seed)
+    model = build_model(cfg).to(device)
+    opt, sched = make_optimizer(model.parameters(), cfg.learning_rate, 100, 10_000)
+    step = make_train_step(
+        model, opt, sched, crop_dim=crop, num_classes_bg=cfg.num_classes_bg,
+        mixup=cfg.mixup, radi_displacement=cfg.radi_displacement, seed=seed,
+    )
+    return model, step
+
+
+def agreement_phase(torch):
+    """fp32 train step and predict on the card vs the CPU, small input."""
+    from tdeed_tpu_torch import load_config
+    from tdeed_tpu_torch.train.step import make_predict_step
+
+    cfg = load_config("FineDiving_small", config_root=CONFIGS, dtype="float32")
+    b, hw, crop = 2, 72, 64
+    batch = _batch(torch, b, cfg.clip_len, hw, cfg.num_classes_bg,
+                   torch.Generator().manual_seed(SEED), "cpu")
+
+    def run(dev):
+        model, step = _trainer(torch, cfg, dev, crop, SEED)
+        draws = step.draw(batch)  # same generator seed: same draws on both
+        predict = make_predict_step(model, crop_dim=crop,
+                                    radi_displacement=cfg.radi_displacement)
+        probs = predict(batch["frame"][:1], hflip=True)[1].cpu()
+        loss = float(step({k: v.to(dev) for k, v in batch.items()}, draws)["loss"])
+        return loss, probs
+
+    (loss_cpu, probs_cpu), (loss_gpu, probs_gpu) = run("cpu"), run("cuda")
+    rel = abs(loss_gpu - loss_cpu) / abs(loss_cpu)
+    perr = float((probs_gpu - probs_cpu).abs().max())
+    log(f"[agree] fp32 train step loss: cuda {loss_gpu:.7f} cpu {loss_cpu:.7f} "
+        f"(rel {rel:.2e}); predict probs max abs diff {perr:.2e}")
+    # The kernel and the plain chain may round a few augmented values to
+    # neighbouring bf16 numbers, which moves the loss by ~1e-4 relative;
+    # cuDNN's and the CPU's fp32 convs differ in summation order.
+    if not (rel < 1e-3 and perr < 1e-4):
+        fail("the CUDA path disagrees with the CPU path on a small input")
+
+
+def serve_phase(torch, cfg, model):
+    from tdeed_tpu_torch.train.step import make_predict_step
+
+    predict = make_predict_step(model, crop_dim=cfg.crop_dim,
+                                radi_displacement=cfg.radi_displacement)
+    gen = torch.Generator().manual_seed(SEED + 2)
+    times = []
+    for _ in range(REQUESTS):
+        frames = torch.randint(0, 256, (REQUEST_CLIPS, cfg.clip_len, FRAME, FRAME, 3),
+                               generator=gen, dtype=torch.uint8)
+        outs = []
+        for hflip in (False, True):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            cls, probs = predict(frames, hflip=hflip)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            want = (REQUEST_CLIPS, cfg.clip_len, cfg.num_classes_bg)
+            if tuple(probs.shape) != want or tuple(cls.shape) != want[:2]:
+                fail(f"predict returned {tuple(probs.shape)}, want {want}")
+            if not bool(torch.isfinite(probs).all()):
+                fail("predict returned non-finite scores")
+            if not bool(((probs >= 0) & (probs <= 1)).all()):
+                fail("predict scores outside [0, 1]")
+            outs.append(probs)
+        if torch.equal(outs[0], outs[1]):
+            fail("the hflip TTA pass returned the plain pass's scores")
+    n = REQUEST_CLIPS * cfg.clip_len
+    steady = times[2:]  # the first request pays cuDNN's first-call costs
+    log(f"[serve] request of {REQUEST_CLIPS} clips x {cfg.clip_len} frames "
+        f"(host uint8 {FRAME}x{FRAME}, crop {cfg.crop_dim}): "
+        f"{', '.join(f'{t * 1e3:.1f}' for t in times)} ms per pass; "
+        f"steady {n * len(steady) / sum(steady):.0f} frames/s")
+
+
+def train_phase(torch, cfg, model, step):
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    batch = _batch(torch, cfg.batch_size, cfg.clip_len, FRAME, cfg.num_classes_bg,
+                   gen, "cuda")
+    torch.cuda.reset_peak_memory_stats()
+    times, losses = [], []
+    for _ in range(TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = float(step(batch)["loss"])  # float() waits for the step
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(loss)
+    if not all(map(math.isfinite, losses)):
+        fail(f"non-finite training loss: {losses}")
+    n = cfg.batch_size * cfg.clip_len
+    log(f"[train] batch {cfg.batch_size} x clip {cfg.clip_len}, {FRAME}^2 uint8 "
+        f"-> crop {cfg.crop_dim}, mixup {cfg.mixup}, {cfg.dtype}: losses "
+        f"{', '.join(f'{v:.4f}' for v in losses)}; step times "
+        f"{', '.join(f'{t * 1e3:.1f}' for t in times)} ms; last step "
+        f"{n / times[-1]:.0f} frames/s; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+
+def main() -> int:
+    import torch
+
+    device_phase(torch)
+    try:
+        import tdeed_tpu_torch  # noqa: F401
+    except ImportError as e:
+        fail(f"the port is not importable here ({e}); run from the repository root")
+    from tdeed_tpu_torch import load_config
+    from tdeed_tpu_torch.kernels.augment import photometric
+
+    build_phase()
+    max_err, ms, plain_ms = kernel_phase(torch)
+    agreement_phase(torch)
+
+    cfg = load_config("FineDiving_small", config_root=CONFIGS)
+    model, step = _trainer(torch, cfg, "cuda", cfg.crop_dim, SEED)
+    log(f"[model] FineDiving_small: {cfg.feature_arch}, clip {cfg.clip_len}, "
+        f"crop {cfg.crop_dim}, {sum(p.numel() for p in model.parameters())} params, "
+        f"{cfg.dtype} compute")
+    photometric.launches = 0
+    serve_phase(torch, cfg, model)
+    train_phase(torch, cfg, model, step)
+    launches = photometric.launches
+    if launches < TRAIN_STEPS:
+        fail(f"the training steps launched the photometric kernel {launches} times")
+
+    leaked = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "flax")))
+    if leaked:
+        fail(f"JAX was imported: {leaked}")
+    log(json.dumps({"kernels": [{
+        "name": "photometric",
+        "route": "cuda",
+        "source": "tdeed_tpu_torch/csrc/photometric.cu",
+        "replaces": "tdeed_tpu/kernels/augment.py:301",
+        "launches": launches,
+        "max_abs_err": max_err,
+        "ms": ms,
+        "plain_ms": plain_ms,
+    }]}))
+    log(json.dumps({"ok": True, "device": {
+        "platform": "gpu",
+        "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count(),
+    }}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,241 @@
+"""Fused photometric augmentation: kernel K1 (port of
+tdeed_tpu/kernels/augment.py:photometric_planar).
+
+One pass per frame: /255 -> gated hflip -> gated hue shift -> saturation ->
+brightness -> contrast toward the frame's gray mean (each clamped to
+[0, 1]) -> gated separable 5-tap reflect-padded blur -> ImageNet
+standardization -> bf16. Frames stay in the (B, T, H, W, 3) layout the
+model reads; the TPU kernel's planar transposes, exchange-matrix flip and
+cast chain are gone.
+
+``photometric`` launches the CUDA kernel (csrc/photometric.cu) for a CUDA
+tensor and runs ``photometric_reference``, the same chain in eager fp32
+PyTorch, for a CPU tensor. There is no fallback from one to the other.
+
+Per-clip parameters, (B, 16) fp32 (the JAX package's layout, :38-46):
+   0: hue gate        1: hue shift
+   2: sat gate        3: sat factor
+   4: bright gate     5: bright factor
+   6: contrast gate   7: contrast factor
+   8: blur gate       9..13: blur taps k0..k4
+  14: hflip gate     15: pad
+A gate is on when its value is > 0.5.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+import torch.nn.functional as F
+
+N_PARAMS = 16
+MAX_FRAMES = 65535  # CUDA grid z limit of the output pass
+
+_MEAN = (0.485, 0.456, 0.406)
+_STD = (0.229, 0.224, 0.225)
+
+
+def sample_params(generator: torch.Generator, batch: int) -> torch.Tensor:
+    """Draw per-clip parameters on the generator's device with the JAX
+    package's distributions (:49-75): gates p=.25; hue U(-.2, .2);
+    saturation, brightness, contrast U(.7, 1.2); blur sigma U(.1, 2) ->
+    normalized 5-tap kernel. Slot 14 is the hflip gate, p=.5 (the JAX
+    wrapper draws it apart and writes it there). Returns (B, 16) fp32."""
+    dev = generator.device
+
+    def rand():
+        return torch.rand(batch, generator=generator, device=dev)
+
+    def gate(p):
+        return (rand() < p).float()
+
+    def uniform(lo, hi):
+        return lo + (hi - lo) * rand()
+
+    cols = [
+        gate(0.25), uniform(-0.2, 0.2),
+        gate(0.25), uniform(0.7, 1.2),
+        gate(0.25), uniform(0.7, 1.2),
+        gate(0.25), uniform(0.7, 1.2),
+        gate(0.25),
+    ]
+    sigma = uniform(0.1, 2.0)
+    offs = torch.arange(-2, 3, dtype=torch.float32, device=dev)
+    taps = torch.exp(-0.5 * (offs[None, :] / sigma[:, None]).square())
+    taps = taps / taps.sum(dim=1, keepdim=True)
+    flip = gate(0.5)
+    return torch.cat(
+        [torch.stack(cols, 1), taps, flip[:, None], torch.zeros(batch, 1, device=dev)],
+        dim=1,
+    )
+
+
+def _hue_shift(r, g, b, shift):
+    """rgb->hsv, shift h, hsv->rgb (torchvision adjust_hue math, the JAX
+    package's _hue_shift op for op)."""
+    maxc = torch.maximum(torch.maximum(r, g), b)
+    minc = torch.minimum(torch.minimum(r, g), b)
+    delta = maxc - minc
+    one = torch.ones_like(delta)
+    safe = torch.where(delta > 0, delta, one)
+    rc = (maxc - r) / safe
+    gc = (maxc - g) / safe
+    bc = (maxc - b) / safe
+    h = torch.where(
+        maxc == r, bc - gc, torch.where(maxc == g, 2.0 + rc - bc, 4.0 + gc - rc)
+    )
+    h = torch.where(delta > 0, h, torch.zeros_like(h))
+    h = torch.remainder(h / 6.0, 1.0)
+    s = torch.where(maxc > 0, delta / torch.where(maxc > 0, maxc, one), 0.0)
+    v = maxc
+
+    h = torch.remainder(h + shift, 1.0)
+    h6 = h * 6.0
+    i = torch.floor(h6)
+    f = h6 - i
+    pp = v * (1.0 - s)
+    q = v * (1.0 - s * f)
+    t = v * (1.0 - s * (1.0 - f))
+    i6 = i.long() % 6  # h6 can round up to 6.0
+
+    def sel(*cands):
+        out = cands[5]
+        for idx in (4, 3, 2, 1, 0):
+            out = torch.where(i6 == idx, cands[idx], out)
+        return out
+
+    return sel(v, q, pp, pp, t, v), sel(t, v, v, q, pp, pp), sel(pp, pp, t, v, v, q)
+
+
+def _blur_reflect(c, taps):
+    """Separable 5-tap blur of (B, T, H, W) with width-2 reflect padding,
+    H then W; taps (B, 5)."""
+    h, w = c.shape[-2:]
+    k = [taps[:, j].view(-1, 1, 1, 1) for j in range(5)]
+    xp = F.pad(c, (0, 0, 2, 2), mode="reflect")
+    y = k[0] * xp[..., 0:h, :]
+    for j in range(1, 5):
+        y = y + k[j] * xp[..., j:j + h, :]
+    xp = F.pad(y, (2, 2, 0, 0), mode="reflect")
+    y = k[0] * xp[..., 0:w]
+    for j in range(1, 5):
+        y = y + k[j] * xp[..., j:j + w]
+    return y
+
+
+def photometric_reference(frames: torch.Tensor, params: torch.Tensor) -> torch.Tensor:
+    """The kernel's function in eager fp32 PyTorch. frames: (B, T, H, W, 3)
+    uint8 or float 0..255; params: (B, 16). Returns (B, T, H, W, 3) bf16."""
+    bsz = frames.shape[0]
+    p = params.float()
+
+    def col(i):
+        return p[:, i].view(bsz, 1, 1, 1)
+
+    def on(i):
+        return (p[:, i] > 0.5).view(bsz, 1, 1, 1)
+
+    x = frames.float() / 255.0
+    x = torch.where(on(14)[..., None], x.flip(3), x)
+    r, g, b = x.unbind(-1)
+
+    hr, hg, hb = _hue_shift(r, g, b, col(1))
+    r, g, b = (torch.where(on(0), n, o) for n, o in ((hr, r), (hg, g), (hb, b)))
+
+    def gray():
+        return 0.299 * r + 0.587 * g + 0.114 * b
+
+    sat = torch.where(on(2), col(3), 1.0)
+    gy = gray()
+    r, g, b = ((sat * c + (1.0 - sat) * gy).clamp(0.0, 1.0) for c in (r, g, b))
+    bri = torch.where(on(4), col(5), 1.0)
+    r, g, b = ((c * bri).clamp(0.0, 1.0) for c in (r, g, b))
+    con = torch.where(on(6), col(7), 1.0)
+    mean = gray().mean(dim=(2, 3), keepdim=True)
+    r, g, b = ((con * c + (1.0 - con) * mean).clamp(0.0, 1.0) for c in (r, g, b))
+
+    taps = p[:, 9:14]
+    r, g, b = (torch.where(on(8), _blur_reflect(c, taps), c) for c in (r, g, b))
+    out = [(c - m) / s for c, m, s in zip((r, g, b), _MEAN, _STD)]
+    return torch.stack(out, dim=-1).to(torch.bfloat16)
+
+
+def _check(frames: torch.Tensor, params: torch.Tensor) -> None:
+    if frames.ndim != 5 or frames.shape[-1] != 3:
+        raise ValueError(f"frames must be (B, T, H, W, 3), got {tuple(frames.shape)}")
+    if frames.dtype not in (torch.uint8, torch.bfloat16):
+        raise TypeError(f"frames must be uint8 or bfloat16, got {frames.dtype}")
+    bsz, t, h, w, _ = frames.shape
+    if params.shape != (bsz, N_PARAMS) or params.dtype != torch.float32:
+        raise ValueError(
+            f"params must be ({bsz}, {N_PARAMS}) float32, got "
+            f"{tuple(params.shape)} {params.dtype}"
+        )
+    if params.device != frames.device:
+        raise ValueError(f"params on {params.device}, frames on {frames.device}")
+    if not (frames.is_contiguous() and params.is_contiguous()):
+        raise ValueError("frames and params must be contiguous")
+    if h < 3 or w < 3:
+        raise ValueError(f"frames must be at least 3x3 for the blur, got {h}x{w}")
+    if bsz * t > MAX_FRAMES:
+        raise ValueError(f"B*T = {bsz * t} frames exceeds {MAX_FRAMES}")
+
+
+@functools.lru_cache(maxsize=None)
+def _kernel():
+    from tdeed_tpu_torch.kernels.build import load
+
+    built = load("photometric")
+    fn = built.lib.tdeed_photometric
+    fn.argtypes = [
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_void_p,
+    ]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def photometric(frames: torch.Tensor, params: torch.Tensor) -> torch.Tensor:
+    """Fused photometric augmentation, (B, T, H, W, 3) uint8 or bf16 0..255
+    -> standardized (B, T, H, W, 3) bf16.
+
+    A CUDA tensor launches the kernel on the current stream (it raises on
+    any launch error); a CPU tensor runs ``photometric_reference``.
+    ``photometric.launches`` counts kernel launches."""
+    if frames.device.type == "cpu":
+        return photometric_reference(frames, params)
+    if frames.device.type != "cuda":
+        raise ValueError(f"photometric runs on cuda or cpu, not {frames.device}")
+    _check(frames, params)
+    bsz, t, h, w, _ = frames.shape
+    fn = _kernel()
+    out = torch.empty(frames.shape, dtype=torch.bfloat16, device=frames.device)
+    means = torch.empty(bsz * t, dtype=torch.float32, device=frames.device)
+    with torch.cuda.device(frames.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(
+            frames.data_ptr(), 0 if frames.dtype == torch.uint8 else 1,
+            params.data_ptr(), means.data_ptr(), out.data_ptr(),
+            bsz, t, h, w, stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"photometric kernel launch failed: CUDA error {err}")
+    photometric.launches += 1
+    return out
+
+
+photometric.launches = 0
+
+
+def train_preprocess(frames: torch.Tensor, params: torch.Tensor) -> torch.Tensor:
+    """The training step's augmentation (the JAX package's
+    train_preprocess_pallas after its crop): frames (B, T, H, W, 3) uint8,
+    or the float mixup blend 0..255, which is staged as bf16; params
+    (B, 16) from sample_params with the flip gate in slot 14. Returns
+    standardized bf16 (B, T, H, W, 3)."""
+    if frames.dtype != torch.uint8:
+        frames = frames.to(torch.bfloat16)
+    return photometric(frames.contiguous(), params.to(frames.device).contiguous())

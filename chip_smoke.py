@@ -6,11 +6,17 @@
 Phases, each fatal on failure:
   1. device: a CUDA card is required (no CPU path); prints the card's name
      and power limit and the TF32 switches;
-  2. build: compiles the photometric kernel (csrc/photometric.cu) with nvcc;
-  3. kernel: the CUDA kernel against its plain PyTorch version on the card,
-     all 64 gate combinations (hue, saturation, brightness, contrast, blur,
-     flip), uint8 and bf16 input, 224x224 and 448x796; then both timed at
-     the flagship shape (8, 100, 224, 224, 3) bf16;
+  2. build: compiles the photometric kernel (csrc/photometric.cu) and the
+     probe kernels (csrc/probe.cu) with nvcc, one process each, together;
+  3. kernel: the photometric kernel against its plain PyTorch version on
+     the card, all 64 gate combinations (hue, saturation, brightness,
+     contrast, blur, flip), uint8 and bf16 input, 224x224 and 448x796; then
+     both timed at the flagship shape (8, 100, 224, 224, 3) bf16;
+  3b. probe: the probe tool (tdeed_tpu_torch.tools.profile_probe) on the
+     card at its full shape (112, 112, 24, 800), which must launch each of
+     the three probe kernels; then each kernel against its plain version at
+     the tool's shapes (perpix also at (112, 56, 48, 800)), and the plain
+     versions timed;
   4. agreement: on a small input, one fp32 train step and one predict
      call on the card against the same calls on the CPU, same weights and
      random draws (the CPU path is the one held against the JAX package by
@@ -23,8 +29,11 @@ Phases, each fatal on failure:
      must go through the CUDA kernel.
 
 The line before the last is a JSON object with each kernel's route, the
-TPU kernel it replaces, its launches in phases 5-6, its largest error
-against the plain version and both times; the last line is
+TPU kernel it replaces, its launches on its path (phases 5-6 for the
+photometric kernel, the probe tool's run for the probe kernels), its
+largest error against the plain version, its time, the plain version's,
+the one PyTorch call's that computes the same function (null where there
+is none) and the card's bound for the same work; the last line is
 {"ok": true, "device": {...}}. Without a CUDA device, or outside the
 repository, it exits non-zero and prints neither.
 """
@@ -36,6 +45,7 @@ import math
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 SEED = 0
@@ -47,6 +57,14 @@ FRAME = 256  # request and training frames before the 224 crop
 REQUESTS = 3
 REQUEST_CLIPS = 4
 TRAIN_STEPS = 3
+KERNEL_SOURCES = ("photometric", "probe")
+# fp32 operations per pixel of the photometric chain as csrc/photometric.cu
+# writes it (each add, sub, mul, div, min, max and floor once), for the
+# gates that are on; a gate that is off needs none: /255 and the
+# standardization 9; hue 32; saturation 21; brightness 9; contrast 16, and
+# 6 more for the frame's gray mean; blur 2 x 27
+K1_OPS_ALWAYS = 9
+K1_OPS_GATED = ((0, 32), (2, 21), (4, 9), (6, 22), (8, 54))  # (param slot, ops)
 
 
 def fail(msg: str) -> None:
@@ -79,12 +97,15 @@ def build_phase():
     from tdeed_tpu_torch.kernels.build import load
 
     t0 = time.perf_counter()
-    built = load("photometric")
-    how = f"nvcc {built.seconds:.1f} s" if built.log else "reused from an earlier build"
-    log(f"[build] {built.path.name}: {how}, {time.perf_counter() - t0:.1f} s in all")
-    for line in built.log.splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"[build] ptxas: {line.strip()}")
+    with ThreadPoolExecutor(len(KERNEL_SOURCES)) as pool:
+        builds = list(pool.map(load, KERNEL_SOURCES))  # raises if nvcc fails
+    for built in builds:
+        how = f"nvcc {built.seconds:.1f} s" if built.log else "reused from an earlier build"
+        log(f"[build] {built.path.name}: {how}")
+        for line in built.log.splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"[build] ptxas: {line.strip()}")
+    log(f"[build] {len(builds)} libraries, {time.perf_counter() - t0:.1f} s in all")
 
 
 def _gate_params(torch, generator, device):
@@ -98,7 +119,7 @@ def _gate_params(torch, generator, device):
     return p.to(device)
 
 
-def _check_close(torch, got, want, what):
+def _check_close(torch, got, want, what, max_abs=None):
     g, w = got.float(), want.float()
     err = (g - w).abs()
     # 1 bf16 ulp at the value's magnitude, floored at 2^-16: near 0 the
@@ -111,22 +132,23 @@ def _check_close(torch, got, want, what):
     max_err, mean_err = float(err.max()), float(err.mean())
     log(f"[kernel] {what}: max abs err {max_err:.6g}, mean {mean_err:.3g}, "
         f"beyond 1 bf16 ulp: {n_bad} of {err.numel()}")
-    if n_bad or max_err > BF16_ULP_AT_2:
-        fail(f"photometric kernel disagrees with photometric_reference ({what})")
+    if n_bad or (max_abs is not None and max_err > max_abs):
+        fail(f"a kernel disagrees with its plain version ({what})")
     return max_err
 
 
+def _check_equal(torch, got, want, what):
+    same = torch.equal(got, want)
+    log(f"[probe] {what}: bit-exact {same}")
+    if not same:
+        fail(f"a kernel disagrees with its plain version ({what})")
+
+
 def _time_ms(torch, fn, iters):
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    """CUDA-event time of one call, after one warm-up call."""
+    from tdeed_tpu_torch.utils.profiling import time_fn
+
+    return time_fn(fn, device="cuda", warmup=1, iters=iters) * 1e3
 
 
 def kernel_phase(torch):
@@ -149,7 +171,8 @@ def kernel_phase(torch):
             torch.cuda.synchronize()
             want = photometric_reference(frames, params)
             max_err = max(max_err, _check_close(
-                torch, got, want, f"{name} {h}x{w}, 64 gate combinations x 2 frames"))
+                torch, got, want, f"{name} {h}x{w}, 64 gate combinations x 2 frames",
+                BF16_ULP_AT_2))
             del got, want
         del u8, blend
 
@@ -158,16 +181,119 @@ def kernel_phase(torch):
     got = photometric(frames, p8)
     torch.cuda.synchronize()
     max_err = max(max_err, _check_close(
-        torch, got, photometric_reference(frames, p8), f"bf16 {FLAGSHIP}, sampled params"))
+        torch, got, photometric_reference(frames, p8), f"bf16 {FLAGSHIP}, sampled params",
+        BF16_ULP_AT_2))
     del got
     ms = _time_ms(torch, lambda: photometric(frames, p8), 20)
     plain_ms = _time_ms(torch, lambda: photometric_reference(frames, p8), 3)
     ms2 = _time_ms(torch, lambda: photometric(frames, p8), 20)
     moved = 2 * frames.numel() * 2  # bf16 in + bf16 out
+    bound_ms, bound_by = _k1_bound(p8, moved)
     log(f"[kernel] flagship {FLAGSHIP} bf16: kernel {ms:.3f} ms then {ms2:.3f} ms "
         f"({moved / (min(ms, ms2) * 1e-3) / 1e9:.0f} GB/s of the 482 MB moved), "
-        f"plain PyTorch {plain_ms:.3f} ms")
-    return max_err, min(ms, ms2), plain_ms
+        f"plain PyTorch {plain_ms:.3f} ms; bound {bound_ms:.4f} ms ({bound_by})")
+    return {
+        "name": "photometric",
+        "route": "cuda",
+        "source": "tdeed_tpu_torch/csrc/photometric.cu",
+        "replaces": "tdeed_tpu/kernels/augment.py:301",
+        "max_abs_err": max_err,
+        "ms": min(ms, ms2),
+        "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "library_ms": None,  # no one PyTorch call computes the chain
+    }
+
+
+def _k1_bound(params, moved):
+    """The card's least time for the flagship call: its bytes, or the fp32
+    operations of the gates these params turn on, at the CUDA cores' peak."""
+    from tdeed_tpu_torch.utils.profiling import PEAK_FP32_FLOPS, bound
+
+    on = (params.cpu() > 0.5).float()
+    per_clip = K1_OPS_ALWAYS + sum(ops * on[:, slot] for slot, ops in K1_OPS_GATED)
+    ops = float(per_clip.sum()) * math.prod(FLAGSHIP[1:4])
+    return bound(moved, ops, PEAK_FP32_FLOPS)
+
+
+def probe_phase(torch):
+    """The probe tool's run on the card (its kernels' path), then each probe
+    kernel against its plain version at the tool's shapes."""
+    from tdeed_tpu_torch.kernels import probe
+    from tdeed_tpu_torch.tools import profile_probe
+
+    kernels = {"stream": probe.stream, "perpix": probe.perpix, "outerp": probe.outerp}
+    for fn in kernels.values():
+        fn.launches = 0
+    results = {r.name: r for r in profile_probe.main([])}
+    launches = {name: fn.launches for name, fn in kernels.items()}
+    log(f"[probe] the tool's run launched {launches}")
+    if min(launches.values()) < 1:
+        fail(f"the probe tool did not launch every probe kernel: {launches}")
+
+    h, w, c, n = profile_probe.SHAPE
+    x, w1, w2 = profile_probe.make_inputs(profile_probe.SHAPE, "cuda")
+    stacked = x.view(h, w // 2, 2 * c, n)
+    entries = {}
+
+    def entry(name, line, err, result, plain_ms, library=True):
+        return {
+            "name": f"probe_{name}",
+            "route": "cuda",
+            "source": "tdeed_tpu_torch/csrc/probe.cu",
+            "replaces": f"tools/profile_pallas_probe.py:{line}",
+            "launches": launches[name],
+            "max_abs_err": err,
+            "ms": result.ms,
+            "plain_ms": plain_ms,
+            "bound_ms": result.bound_ms,
+            "bound_by": result.bound_by,
+            "library_ms": result.library_ms if library else None,
+        }
+
+    got = probe.stream(x)
+    torch.cuda.synchronize()
+    _check_equal(torch, got, probe.stream_reference(x), f"stream {tuple(x.shape)}")
+    entries["stream"] = entry("stream", 96, 0.0, results["stream"],
+                              _time_ms(torch, lambda: probe.stream_reference(x), 3))
+
+    perpix = {}
+    for name, xv, wt in (("perpix", x, w1), ("stacked2", stacked, w2)):
+        got = probe.perpix(xv, wt)
+        torch.cuda.synchronize()
+        err = _check_close(torch, got, probe.perpix_reference(xv, wt),
+                           f"perpix {tuple(xv.shape)}")
+        plain_ms = _time_ms(torch, lambda: probe.perpix_reference(xv, wt), 3)
+        perpix[name] = entry("perpix", 100, err, results[name], plain_ms)
+    entries["perpix"] = perpix["perpix"]
+    entries["perpix"]["stacked2"] = {k: perpix["stacked2"][k] for k in (
+        "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
+    entries["perpix"]["stacked2"]["shape"] = list(stacked.shape)
+
+    got, acc = probe.outerp(x)
+    torch.cuda.synchronize()
+    _check_equal(torch, got, probe.stream_reference(x), f"outerp pass-through {tuple(x.shape)}")
+    del got
+    xd = x.double()
+    want = torch.einsum("hwcn,hwdn->cd", xd, xd)
+    del xd
+    acc_err = float((acc.double() - want).abs().max())
+    rel = acc_err / float(want.abs().max())
+    log(f"[probe] outerp sum {tuple(acc.shape)}: max abs err {acc_err:.6g} against a "
+        f"float64 sum, {rel:.3g} of its largest entry")
+    if not rel <= 1e-4:
+        fail("the outerp kernel's sum disagrees with a float64 sum")
+    entries["outerp"] = entry("outerp", 113, acc_err, results["outerp"],
+                              _time_ms(torch, lambda: probe.outerp_reference(x), 3),
+                              library=False)
+    # beside it, not the same function: einsum of the fp32 sum alone
+    entries["outerp"]["sum_einsum_ms"] = results["outerp"].library_ms
+    entries["outerp"]["acc_rel_err"] = rel
+    for e in entries.values():
+        log(f"[probe] {e['name']}: kernel {e['ms']:.3f} ms, plain {e['plain_ms']:.3f} ms, "
+            f"library {e['library_ms']}, bound {e['bound_ms']:.4f} ms ({e['bound_by']})")
+    return list(entries.values())
 
 
 def _batch(torch, b, t, hw, n_classes_bg, gen, device):
@@ -193,7 +319,7 @@ def _trainer(torch, cfg, device, crop, seed):
     from tdeed_tpu_torch.train.step import make_train_step
 
     torch.manual_seed(seed)
-    model = build_model(cfg).to(device)
+    model = build_model(cfg, device=device)
     opt, sched = make_optimizer(model.parameters(), cfg.learning_rate, 100, 10_000)
     step = make_train_step(
         model, opt, sched, crop_dim=crop, num_classes_bg=cfg.num_classes_bg,
@@ -304,7 +430,9 @@ def main() -> int:
     from tdeed_tpu_torch.kernels.augment import photometric
 
     build_phase()
-    max_err, ms, plain_ms = kernel_phase(torch)
+    k1 = kernel_phase(torch)
+    probes = probe_phase(torch)
+    torch.cuda.empty_cache()
     agreement_phase(torch)
 
     cfg = load_config("FineDiving_small", config_root=CONFIGS)
@@ -315,23 +443,18 @@ def main() -> int:
     photometric.launches = 0
     serve_phase(torch, cfg, model)
     train_phase(torch, cfg, model, step)
-    launches = photometric.launches
-    if launches < TRAIN_STEPS:
-        fail(f"the training steps launched the photometric kernel {launches} times")
+    k1["launches"] = photometric.launches
+    if k1["launches"] < TRAIN_STEPS:
+        fail(f"the training steps launched the photometric kernel {k1['launches']} times")
 
-    leaked = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "flax")))
+    leaked = sorted(m for m in sys.modules if m.split(".")[0] in (
+        "jax", "jaxlib", "flax", "optax", "tdeed_tpu"))
     if leaked:
-        fail(f"JAX was imported: {leaked}")
-    log(json.dumps({"kernels": [{
-        "name": "photometric",
-        "route": "cuda",
-        "source": "tdeed_tpu_torch/csrc/photometric.cu",
-        "replaces": "tdeed_tpu/kernels/augment.py:301",
-        "launches": launches,
-        "max_abs_err": max_err,
-        "ms": ms,
-        "plain_ms": plain_ms,
-    }]}))
+        fail(f"JAX or the JAX package was imported: {leaked}")
+    kernels = [k1, *probes]
+    for k in kernels:
+        k["lib_ms"] = k["library_ms"]
+    log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

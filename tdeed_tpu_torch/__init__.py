@@ -3,11 +3,12 @@ Hopper GPUs.
 
 The port of ``tdeed_tpu`` (JAX on a TPU), which stays the reference it is
 tested against. Module layout mirrors ``tdeed_tpu`` (models/, ops/,
-kernels/, train/), so each module's counterpart is easy to find. Plain
-tensor code is PyTorch; the JAX package's Pallas kernel is a hand-written
-CUDA kernel (csrc/), built with nvcc at first use. The config system is
-the JAX package's own JAX-free ``tdeed_tpu.config``, reused by import.
-The port never imports jax.
+kernels/, train/, utils/, tools/), so each module's counterpart is easy to
+find. Plain tensor code is PyTorch; each of the JAX package's Pallas
+kernels is a hand-written CUDA kernel (csrc/), built with nvcc at first
+use. The config system is the port's own copy, ``tdeed_tpu_torch.config``.
+The port imports nothing of jax or of ``tdeed_tpu``; its entry points run
+on the CUDA device unless the caller asks for the CPU.
 """
 
-from tdeed_tpu.config import TDEEDConfig, load_config  # noqa: F401
+from tdeed_tpu_torch.config import TDEEDConfig, load_config  # noqa: F401

@@ -22,12 +22,18 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 
-# --fmad=false and no fast math: every fp32 multiply and add rounds as in
-# the fp32 PyTorch reference the kernels are held against.
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "--fmad=false", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC",
 )
+# No fast math anywhere. photometric: --fmad=false, so every fp32 multiply
+# and add rounds as in the fp32 PyTorch chain it is held against. probe:
+# FMA on, since it is held to 1 bf16 ulp and a fused multiply-add halves
+# the instructions of its products.
+SOURCE_FLAGS = {
+    "photometric": ("--fmad=false",),
+    "probe": ("--fmad=true",),
+}
 
 
 @dataclass(frozen=True)
@@ -50,9 +56,8 @@ def _nvcc() -> str:
 def load(name: str) -> Built:
     """Compile ``csrc/<name>.cu`` if needed and load it."""
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()
-    ).hexdigest()[:16]
+    flags = NVCC_FLAGS + SOURCE_FLAGS[name]
+    digest = hashlib.sha256(src.read_bytes() + " ".join(flags).encode()).hexdigest()[:16]
     path = BUILD_DIR / f"lib{name}-{digest}.so"
     seconds, log = 0.0, ""
     if not path.exists():
@@ -60,7 +65,7 @@ def load(name: str) -> Built:
         tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
         t0 = time.perf_counter()
         proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+            [_nvcc(), *flags, "-o", str(tmp), str(src)],
             capture_output=True, text=True,
         )
         seconds = time.perf_counter() - t0

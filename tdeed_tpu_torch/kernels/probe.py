@@ -1,0 +1,142 @@
+"""Access-pattern probe kernels: P1 (port of the three Pallas bodies of
+tools/profile_pallas_probe.py:run).
+
+On x, (H, W, C, N) bf16 with the batch N minor:
+  ``stream(x)``     -> bf16(x * 1.03125)                    (stream_kernel)
+  ``perpix(x, wt)`` -> bf16(wt @ x[h, w]) per pixel, fp32 sums (perpix_kernel)
+  ``outerp(x)``     -> (stream(x), sum over (h, w) of x[h, w] @ x[h, w]^T
+                        in fp32, (C, C))                     (outerp_kernel)
+with C <= 64 and wt (C, C) bf16.
+
+A CUDA tensor launches the kernel (csrc/probe.cu) on the current stream
+and adds one to ``<fn>.launches``; a CPU tensor runs the plain version
+(``*_reference``), because the caller asked for the CPU. Any other device
+raises. There is no fallback from one to the other.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+SCALE = 1.03125  # exact in bf16: x * SCALE rounds once
+MAX_C = 64
+OUTERP_PARTIALS = 512  # blocks of outerp's first pass, each one fp32 (C, C) partial
+
+
+def stream_reference(x: torch.Tensor) -> torch.Tensor:
+    """bf16(x * 1.03125), the product taken in fp32 (exact there)."""
+    return (x.float() * SCALE).to(torch.bfloat16)
+
+
+def perpix_reference(x: torch.Tensor, wt: torch.Tensor) -> torch.Tensor:
+    """Per pixel (h, w): bf16(wt @ x[h, w]) with fp32 sums."""
+    return torch.einsum("cd,hwdn->hwcn", wt.float(), x.float()).to(torch.bfloat16)
+
+
+def outerp_reference(x: torch.Tensor):
+    """(stream_reference(x), sum over (h, w) of x[h, w] @ x[h, w]^T in fp32)."""
+    xf = x.float()
+    return stream_reference(x), torch.einsum("hwcn,hwdn->cd", xf, xf)
+
+
+def _check(x: torch.Tensor, wt=None) -> None:
+    if x.ndim != 4:
+        raise ValueError(f"x must be (H, W, C, N), got {tuple(x.shape)}")
+    if x.dtype != torch.bfloat16:
+        raise TypeError(f"x must be bfloat16, got {x.dtype}")
+    if x.numel() == 0:
+        raise ValueError(f"x is empty: {tuple(x.shape)}")
+    c = x.shape[2]
+    if c > MAX_C:
+        raise ValueError(f"C = {c} exceeds {MAX_C}")
+    if not x.is_contiguous():
+        raise ValueError("x must be contiguous")
+    if wt is None:
+        return
+    if wt.shape != (c, c) or wt.dtype != torch.bfloat16:
+        raise ValueError(f"wt must be ({c}, {c}) bfloat16, got {tuple(wt.shape)} {wt.dtype}")
+    if wt.device != x.device:
+        raise ValueError(f"wt on {wt.device}, x on {x.device}")
+    if not wt.is_contiguous():
+        raise ValueError("wt must be contiguous")
+
+
+@functools.lru_cache(maxsize=None)
+def _lib():
+    from tdeed_tpu_torch.kernels.build import load
+
+    lib = load("probe").lib
+    ptr, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+    lib.tdeed_probe_stream.argtypes = [ptr, ptr, i64, ptr]
+    lib.tdeed_probe_perpix.argtypes = [ptr, ptr, ptr, i64, i32, i32, ptr]
+    lib.tdeed_probe_outerp.argtypes = [ptr, ptr, ptr, ptr, i64, i32, i32, i32, ptr]
+    for fn in (lib.tdeed_probe_stream, lib.tdeed_probe_perpix, lib.tdeed_probe_outerp):
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def _on_card(x: torch.Tensor, what: str) -> bool:
+    """True for a CUDA tensor, False for a CPU one; raise for the rest."""
+    if x.device.type == "cpu":
+        return False
+    if x.device.type != "cuda":
+        raise ValueError(f"{what} runs on cuda or cpu, not {x.device}")
+    return True
+
+
+def _launch(what: str, fn, x: torch.Tensor, *args) -> None:
+    with torch.cuda.device(x.device):
+        err = fn(*args, torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"probe {what} kernel launch failed: CUDA error {err}")
+
+
+def stream(x: torch.Tensor) -> torch.Tensor:
+    """bf16(x * 1.03125) over (H, W, C, N) bf16 x."""
+    if not _on_card(x, "stream"):
+        return stream_reference(x)
+    _check(x)
+    y = torch.empty_like(x)
+    _launch("stream", _lib().tdeed_probe_stream, x, x.data_ptr(), y.data_ptr(), x.numel())
+    stream.launches += 1
+    return y
+
+
+def perpix(x: torch.Tensor, wt: torch.Tensor) -> torch.Tensor:
+    """Per pixel (h, w): bf16(wt @ x[h, w]), fp32 sums; x (H, W, C, N) and
+    wt (C, C) bf16."""
+    if not _on_card(x, "perpix"):
+        return perpix_reference(x, wt)
+    _check(x, wt)
+    h, w, c, n = x.shape
+    o = torch.empty_like(x)
+    _launch("perpix", _lib().tdeed_probe_perpix, x,
+            x.data_ptr(), wt.data_ptr(), o.data_ptr(), h * w, c, n)
+    perpix.launches += 1
+    return o
+
+
+def outerp(x: torch.Tensor):
+    """(bf16(x * 1.03125), (C, C) fp32 sum over (h, w) of x[h, w] @
+    x[h, w]^T) for (H, W, C, N) bf16 x. The sum is deterministic: fixed
+    partials, added in a fixed order."""
+    if not _on_card(x, "outerp"):
+        return outerp_reference(x)
+    _check(x)
+    h, w, c, n = x.shape
+    nparts = min(h * w, OUTERP_PARTIALS)
+    o = torch.empty_like(x)
+    partial = torch.empty(nparts, c, c, dtype=torch.float32, device=x.device)
+    acc = torch.empty(c, c, dtype=torch.float32, device=x.device)
+    _launch("outerp", _lib().tdeed_probe_outerp, x, x.data_ptr(), o.data_ptr(),
+            partial.data_ptr(), acc.data_ptr(), h * w, c, n, nparts)
+    outerp.launches += 1
+    return o, acc
+
+
+stream.launches = 0
+perpix.launches = 0
+outerp.launches = 0

@@ -105,11 +105,23 @@ def check_supported(cfg) -> None:
         raise ValueError(f"dtype must be one of {sorted(_DTYPES)}, got {cfg.dtype!r}")
 
 
-def build_model(cfg, two_heads=None) -> TDEED:
-    """Construct a TDEED module from a TDEEDConfig (tdeed_tpu.config)."""
+def build_model(cfg, two_heads=None, *, device="cuda") -> TDEED:
+    """Construct a TDEED module from a TDEEDConfig (tdeed_tpu_torch.config)
+    on ``device``: the CUDA device unless the caller asks for the CPU.
+
+    Weights are drawn from torch's default CPU generator and then moved,
+    so one seed gives the same weights on every device. Without a CUDA
+    device, ``device="cuda"`` raises RuntimeError: nothing falls back to
+    the CPU."""
     check_supported(cfg)
     if two_heads is not None:
         refuse("two_heads", "FC2 double head")
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "build_model: no CUDA device (torch.cuda.is_available() is False); "
+            "pass device='cpu' to build on the CPU"
+        )
     return TDEED(
         num_classes=cfg.num_classes,
         clip_len=cfg.clip_len,
@@ -118,4 +130,4 @@ def build_model(cfg, two_heads=None) -> TDEED:
         sgp_r=cfg.sgp_r,
         radi_displacement=cfg.radi_displacement,
         dtype=_DTYPES[cfg.dtype],
-    )
+    ).to(device)

@@ -154,7 +154,9 @@ def make_train_step(
 ) -> TrainStep:
     """Build the training step over ``model`` with ``optimizer`` and
     ``scheduler`` from train.schedule.make_optimizer. ``seed`` seeds the
-    step's generators."""
+    step's generators. The step runs on the device of the model's
+    parameters (``build_model`` puts them on the CUDA device unless asked
+    for the CPU) and moves each batch there."""
     if acc_grad_iter != 1:
         refuse(f"acc_grad_iter={acc_grad_iter}", "acc_grad_iter scan")
     if two_heads is not None:
@@ -170,7 +172,9 @@ def make_predict_step(model, *, crop_dim: Optional[int], radi_displacement: int,
                       two_heads=None):
     """Inference step: predict(frames, hflip=False) -> (argmax (B, T),
     scores (B, T, C)), softmax scores displacement-decoded when the head
-    exists (ref: model/model.py:334-369). hflip selects the TTA pass."""
+    exists (ref: model/model.py:334-369). hflip selects the TTA pass. It
+    runs on the device of the model's parameters and moves the frames
+    there."""
     if two_heads is not None:
         refuse("two_heads", "FC2 double head")
 

@@ -21,8 +21,8 @@ REPO = Path(__file__).resolve().parents[1]
 
 def test_importing_every_port_module_leaves_jax_out():
     """In a fresh interpreter: import every module of the package, then
-    no jax/flax/optax module is loaded, and of the JAX package only its
-    JAX-free config (with the package __init__ that imports it)."""
+    no jax/flax/optax module is loaded, and no module of the JAX package
+    (the port keeps its own copy of the JAX-free config)."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import tdeed_tpu_torch\n"
@@ -37,18 +37,31 @@ def test_importing_every_port_module_leaves_jax_out():
         timeout=120, check=True,
     ).stdout.split(" ", 1)
     assert int(out[0]) >= 15, out  # every module of the slice was imported
-    assert out[1].strip() == "[] ['tdeed_tpu', 'tdeed_tpu.config']"
+    assert out[1].strip() == "[] []"
 
 
 def test_build_flagship_config_at_full_width():
     cfg = load_config("FineDiving_small", config_root=str(REPO / "configs"))
-    model = build_model(cfg)
+    model = build_model(cfg, device="cpu")
     assert model.dtype == torch.bfloat16 and model.clip_len == 100
     assert model.feat_dim == 368
     assert model.temp_enc.shape == (100, 368)
     assert model._pred_fine._fc_out.out_features == cfg.num_classes + 1 == 5
     assert len(model._temp_fine._sgp) == 2 * cfg.n_layers + 1
     assert all(p.dtype == torch.float32 for p in model.parameters())
+
+
+def test_build_model_defaults_to_cuda_and_never_falls_back(monkeypatch):
+    """No device named: the CUDA device, and without one a RuntimeError
+    that names device='cpu', never a module quietly left on the CPU."""
+    cfg = load_config("FineDiving_small", config_root=str(REPO / "configs"), clip_len=8)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        build_model(cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        build_model(cfg, device="cuda:0")
+    model = build_model(cfg, device="cpu")
+    assert {p.device.type for p in model.parameters()} == {"cpu"}
 
 
 @pytest.mark.parametrize(
@@ -67,15 +80,15 @@ def test_build_flagship_config_at_full_width():
 def test_build_model_refuses_what_the_port_lacks(override, item):
     cfg = load_config("FineDiving_small", config_root=str(REPO / "configs"), **override)
     with pytest.raises(NotImplementedError, match="ROADMAP.md") as err:
-        build_model(cfg)
+        build_model(cfg, device="cpu")
     assert item in str(err.value)
 
 
 def test_steps_refuse_what_the_port_lacks():
     cfg = load_config("FineDiving_small", config_root=str(REPO / "configs"), clip_len=8)
-    model = build_model(cfg)
+    model = build_model(cfg, device="cpu")
     with pytest.raises(NotImplementedError, match="FC2 double head"):
-        build_model(cfg, two_heads=(5, 18))
+        build_model(cfg, two_heads=(5, 18), device="cpu")
     opt, sched = make_optimizer(model.parameters(), 1e-3, 1, 10)
     common = dict(crop_dim=32, num_classes_bg=5, mixup=True, radi_displacement=2)
     with pytest.raises(NotImplementedError, match="acc_grad_iter scan"):
@@ -115,7 +128,7 @@ def test_predict_step_output_contract():
     cfg = load_config("FineDiving_small", config_root=str(REPO / "configs"),
                       clip_len=8, dtype="float32")
     torch.manual_seed(0)
-    predict = make_predict_step(build_model(cfg), crop_dim=32, radi_displacement=2)
+    predict = make_predict_step(build_model(cfg, device="cpu"), crop_dim=32, radi_displacement=2)
     frames = np.random.default_rng(0).integers(0, 256, (1, 8, 36, 36, 3)).astype(np.uint8)
     cls, probs = predict(frames)
     assert probs.shape == (1, 8, 5) and cls.shape == (1, 8)

@@ -1,6 +1,7 @@
-"""The photometric CUDA kernel (tdeed_tpu_torch/csrc/photometric.cu) against
-its plain PyTorch version on the card. Needs a CUDA GPU and nvcc; every test
-skips without a card. The card's machine has no JAX, and tests/conftest.py
+"""The CUDA kernels against their plain PyTorch versions on the card: the
+photometric kernel (tdeed_tpu_torch/csrc/photometric.cu) and the three
+probe kernels (tdeed_tpu_torch/csrc/probe.cu). Needs a CUDA GPU and nvcc;
+every test skips without a card. The card's machine has no JAX, and tests/conftest.py
 imports it, so run this file there without the conftest:
 
     python -m pytest tests/test_torch_kernel_gpu.py -m gpu --noconftest -q
@@ -11,11 +12,15 @@ summation order can move a value across one bf16 rounding boundary, never
 further. Near 0 the standardization (c - mean) / std cancels, and the
 plain version on the card divides by a scalar as a multiply by its
 reciprocal: the two differ there by ~1e-6 absolute (measured on an H100).
+The probe: stream and outerp's pass-through bit-exact; perpix 1 bf16 ulp,
+floored the same way (fp32 sums in another order); outerp's fp32 (C, C)
+sum within 1e-5 of its largest entry against a float64 sum.
 """
 
 import pytest
 import torch
 
+from tdeed_tpu_torch.kernels import probe
 from tdeed_tpu_torch.kernels.augment import (
     photometric,
     photometric_reference,
@@ -99,3 +104,61 @@ def test_wrapper_raises_instead_of_falling_back(cuda):
         photometric(frames, torch.zeros(1, 16))
     with pytest.raises(TypeError):
         photometric(frames.float(), torch.zeros(1, 16, device=cuda))
+
+
+def _probe_x(shape, device, seed=0):
+    g = torch.Generator(device=device).manual_seed(seed)
+    return torch.randn(shape, generator=g, device=device).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("shape", [(16, 16, 24, 800), (3, 5, 7, 37), (1, 1, 1, 1)])
+def test_probe_stream_is_bit_exact(cuda, shape):
+    x = _probe_x(shape, cuda)
+    assert torch.equal(probe.stream(x), probe.stream_reference(x))
+    if x.numel() > 1:
+        tail = x.view(-1)[1:].view(-1, 1, 1, 1)  # not 16-byte aligned: the scalar path
+        assert torch.equal(probe.stream(tail), probe.stream_reference(tail))
+
+
+@pytest.mark.parametrize(
+    "shape", [(16, 16, 24, 800), (16, 8, 48, 800), (3, 5, 20, 37), (2, 3, 64, 129), (2, 2, 1, 5)],
+)
+def test_probe_perpix_matches_reference(cuda, shape):
+    c = shape[2]
+    x = _probe_x(shape, cuda)
+    wt = (torch.randn(c, c, generator=torch.Generator().manual_seed(1)) / c ** 0.5)
+    wt = wt.to(torch.bfloat16).to(cuda)
+    got = probe.perpix(x, wt)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16 and got.shape == x.shape
+    _assert_within_bf16_ulp(got, probe.perpix_reference(x, wt))
+
+
+@pytest.mark.parametrize("shape", [(16, 16, 24, 800), (3, 5, 20, 37), (2, 3, 64, 300), (1, 1, 1, 1)])
+def test_probe_outerp_matches_reference(cuda, shape):
+    x = _probe_x(shape, cuda)
+    got, acc = probe.outerp(x)
+    torch.cuda.synchronize()
+    assert torch.equal(got, probe.stream_reference(x))
+    xd = x.double()
+    want = torch.einsum("hwcn,hwdn->cd", xd, xd)
+    assert acc.dtype == torch.float32 and acc.shape == (shape[2], shape[2])
+    err = float((acc.double() - want).abs().max())
+    assert err <= 1e-5 * float(want.abs().max()), err
+    _, again = probe.outerp(x)
+    assert torch.equal(acc, again)  # fixed partials in a fixed order
+
+
+def test_probe_launch_counters_and_errors(cuda):
+    x = _probe_x((2, 2, 8, 16), cuda)
+    wt = torch.zeros(8, 8, dtype=torch.bfloat16, device=cuda)
+    before = (probe.stream.launches, probe.perpix.launches, probe.outerp.launches)
+    probe.stream(x)
+    probe.perpix(x, wt)
+    probe.outerp(x)
+    after = (probe.stream.launches, probe.perpix.launches, probe.outerp.launches)
+    assert after == tuple(b + 1 for b in before)
+    with pytest.raises(ValueError):  # weight on the wrong device
+        probe.perpix(x, wt.cpu())
+    with pytest.raises(TypeError):
+        probe.stream(x.float())

@@ -49,12 +49,13 @@ def bf16_ulp(x: np.ndarray) -> np.ndarray:
     return 2.0 ** (np.floor(np.log2(a)) - 7)
 
 
-def assert_within_bf16_ulp(got: np.ndarray, want: np.ndarray) -> None:
-    """|got - want| <= 1 bf16 ulp at the larger magnitude, elementwise."""
+def assert_within_bf16_ulp(got: np.ndarray, want: np.ndarray, floor: float = 0.0) -> None:
+    """|got - want| <= 1 bf16 ulp at the larger magnitude, elementwise,
+    the magnitude taken as at least ``floor``."""
     got = np.asarray(got, np.float64)
     want = np.asarray(want, np.float64)
     err = np.abs(got - want)
-    bound = bf16_ulp(np.maximum(np.abs(got), np.abs(want)))
+    bound = bf16_ulp(np.maximum(np.maximum(np.abs(got), np.abs(want)), floor))
     bad = err > bound
     assert not bad.any(), (
         f"{bad.sum()} of {bad.size} values beyond 1 bf16 ulp; worst "

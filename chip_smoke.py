@@ -103,7 +103,7 @@ def build_phase():
         how = f"nvcc {built.seconds:.1f} s" if built.log else "reused from an earlier build"
         log(f"[build] {built.path.name}: {how}")
         for line in built.log.splitlines():
-            if "registers" in line or "spill" in line:
+            if "entry function" in line or "registers" in line or "spill" in line:
                 log(f"[build] ptxas: {line.strip()}")
     log(f"[build] {len(builds)} libraries, {time.perf_counter() - t0:.1f} s in all")
 
@@ -259,6 +259,7 @@ def probe_phase(torch):
                               _time_ms(torch, lambda: probe.stream_reference(x), 3))
 
     perpix = {}
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     for name, xv, wt in (("perpix", x, w1), ("stacked2", stacked, w2)):
         got = probe.perpix(xv, wt)
         torch.cuda.synchronize()
@@ -266,9 +267,14 @@ def probe_phase(torch):
                            f"perpix {tuple(xv.shape)}")
         plain_ms = _time_ms(torch, lambda: probe.perpix_reference(xv, wt), 3)
         perpix[name] = entry("perpix", 100, err, results[name], plain_ms)
+        hh, ww, cc, nn = xv.shape
+        plan = probe.perpix_plan(cc, nn, hh * ww, sms)
+        perpix[name]["plan"] = {k: getattr(plan, k) for k in (
+            "c_pad", "bn", "tiles", "smem_bytes", "grid")}
+        log(f"[probe] perpix plan {tuple(xv.shape)}: {perpix[name]['plan']}")
     entries["perpix"] = perpix["perpix"]
     entries["perpix"]["stacked2"] = {k: perpix["stacked2"][k] for k in (
-        "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
+        "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "plan")}
     entries["perpix"]["stacked2"]["shape"] = list(stacked.shape)
 
     got, acc = probe.outerp(x)

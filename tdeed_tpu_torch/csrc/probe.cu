@@ -16,22 +16,44 @@
 // What bounds them on an H100: memory bytes. At the tool's shape
 // (112, 112, 24, 800) each must read 482 MB and write 482 MB, 0.288 ms at
 // the published 3.35 TB/s. perpix and outerp do 11.56 GFLOP there (23.12 at
-// the stacked (112, 56, 48, 800)): 0.012 ms on the bf16 tensor cores, but
-// these kernels run on the fp32 CUDA cores (67 TFLOP/s published, FMA on),
-// where 11.56 GFLOP take 0.17 ms and 23.12 take 0.35 ms. So perpix at
-// C = 48 sits at the crossing of the two bounds; the rest are bound by
-// bytes.
+// the stacked (112, 56, 48, 800)): 0.012 ms on the bf16 tensor cores
+// (989 TFLOP/s), but 0.17 and 0.35 ms on the fp32 CUDA cores (67 TFLOP/s).
+// At 24 FLOP a byte (C = 48) the CUDA cores cannot keep pace with the
+// memory; the tensor cores can, many times over. outerp still runs on the
+// CUDA cores; perpix runs on the tensor cores.
 //
-// Design, the first simple version:
+// Design:
 //   stream: elementwise, 16-byte vector loads and stores when both
 //           pointers are 16-byte aligned, a scalar tail.
-//   perpix: one block per pixel (h, w); Wt staged in shared memory as fp32,
-//           transposed so that one 16-byte broadcast load feeds 8 FMAs.
-//           Each thread owns a pair of columns n (N is minor: neighbouring
-//           threads read neighbouring addresses) and keeps C x 2 fp32 sums
-//           in registers, with k in order. C <= 64, compiled for
-//           C in {8, 16, 24, 32, 48, 64} and run at the next size up (the
-//           extra rows of the staged weight are zero).
+//   perpix: warp-level bf16 mma.sync (m16n8k16, fp32 sums) fed by cp.async,
+//           one instantiation per C padded up to CPAD in {16, 32, 48, 64}.
+//           A work item is C rows x bn columns of one pixel (bn a multiple
+//           of 16); a block walks a contiguous range of items through a
+//           ring of kPerpixStages = 3 tiles in shared memory, so that the
+//           copies of the next two items are in flight while one is
+//           multiplied and stored. One block per SM (grid = min(items,
+//           SMs)); kernels/probe.py:perpix_plan picks CPAD and the widest
+//           tiles whose ring fits the block's 227 KB (at N = 800 a whole
+//           pixel at C = 24, half of one at C = 48): long contiguous rows
+//           are what the memory rewards.
+//           - Padding: the (C, C) weight is staged once per block as a
+//             zero-padded (CPAD, CPAD) bf16 tile, and each warp keeps all
+//             its A fragments in registers ((CPAD / 16)^2 x 4: 36 at
+//             C = 48). Rows C..CPAD-1 of every stage tile are zeroed once
+//             and never written by a copy; columns past N in a ragged
+//             tile are zero-filled by cp.async's src-size operand.
+//           - Product: a warp takes 16-column strips; per strip it loads
+//             the B fragments of all k with ldmatrix.x4.trans (the tile is
+//             row major, N minor) and runs (CPAD / 16)^2 x 2 MMAs.
+//           - Epilogue: bf16 pairs into an output tile in shared memory,
+//             then 16-byte coalesced stores of rows c < C, columns n < N.
+//           - The row stride of a tile is bn + 8 elements: ldmatrix rows
+//             and the epilogue's stores fall in distinct banks, and every
+//             row stays 16-byte aligned.
+//           - Alignment: the 16-byte copies and stores need x and o
+//             16-byte aligned and N % 8 == 0. Otherwise the same kernel
+//             copies and stores element by element through the same tiles
+//             and the same MMAs.
 //   outerp: the TPU body keeps one (C, C) accumulator resident across its
 //           sequential grid. CUDA blocks run in no set order, so the sum is
 //           two passes with no atomics, deterministic: pass 1 gives each of
@@ -46,14 +68,17 @@
 // Numerics: bf16 in, fp32 products and sums, one rounding to bf16 out.
 // 1.03125 is exact in bf16 and a bf16 x bf16 product is exact in fp32, so
 // stream and the pass-through are bit-exact against x * bf16(1.03125).
-// Built with FMA on (kernels/build.py): the probe is held to 1 bf16 ulp,
-// not to a bit-exact fp32 chain, and a separate multiply and add would
-// double the CUDA-core instructions of the products.
+// perpix's tensor cores add the products of one k16 step in their own
+// order: it is held to 1 bf16 ulp of the fp32 einsum, and two calls give
+// the same bits. Built with FMA on (kernels/build.py): a separate multiply
+// and add would double outerp's CUDA-core instructions.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <limits.h>
 #include <stdint.h>
+
+#include <atomic>
 
 namespace {
 
@@ -61,7 +86,10 @@ constexpr float kScale = 1.03125f;
 constexpr int kMaxC = 64;
 constexpr int kStreamThreads = 256;
 constexpr int kPerpixThreads = 256;
-constexpr int kKChunk = 8;  // rows of x a perpix thread loads before use
+constexpr int kPerpixWarps = kPerpixThreads / 32;
+constexpr int kPerpixStages = 3;  // perpix's ring of tiles
+constexpr int kStaticSmem = 48 * 1024;  // more needs the opt-in attribute
+constexpr int kMaxBlockSmem = 232448;   // 227 KB, a block's most on sm_90
 constexpr int kOuterThreads = 256;
 constexpr int kChunkPairs = 128;  // column pairs staged per outerp chunk
 constexpr int kRowWords = kChunkPairs + 1;  // odd: rows fall in distinct banks
@@ -93,62 +121,185 @@ __global__ void __launch_bounds__(kStreamThreads)
     y[i] = __float2bfloat16_rn(scaled(__bfloat162float(x[i])));
 }
 
-template <int CMAX>
-__global__ void __launch_bounds__(kPerpixThreads)
+// shared memory of a perpix block: the (CPAD, CPAD) weight, the ring of
+// kPerpixStages tiles and one output tile, each (CPAD, bn + 8)
+constexpr long long perpix_smem(int cpad, int bn) {
+  return 2LL * cpad * cpad + 2LL * (kPerpixStages + 1) * cpad * (bn + 8);
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes from global to shared; `bytes` 0 writes zeros and reads nothing
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(dst), "l"(src), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// wait until at most PENDING of this thread's copy groups are in flight
+template <int PENDING>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(PENDING) : "memory");
+}
+
+// four 8x8 bf16 tiles, transposed: the B fragments of a 16 (k) x 16 (n)
+// block of a row-major tile, n-columns 0-7 in r[0], r[1], 8-15 in r[2], r[3]
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr) : "memory");
+}
+
+// d += a (16x16 bf16, row major) @ b (16x8 bf16), fp32 sums
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// o[p] = bf16(wt @ x[p]) for (npix, C, N) x and o. Items are (pixel, column
+// tile) in order, `tiles` tiles of bn columns per pixel; block b takes items
+// [items * b / grid, items * (b + 1) / grid). Built for one block per SM,
+// so no register cap forces a spill.
+template <int CPAD>
+__global__ void __launch_bounds__(kPerpixThreads, 1)
     perpix_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wt,
-                  bf16* __restrict__ o, int C, int N) {
-  // ws[k * CMAX + c] = Wt[c, k]; rows and columns from C up are zero
-  __shared__ __align__(16) float ws[CMAX * CMAX];
-  for (int i = threadIdx.x; i < CMAX * CMAX; i += blockDim.x) {
-    const int k = i / CMAX, c = i % CMAX;
-    ws[i] = (k < C && c < C) ? __bfloat162float(wt[c * C + k]) : 0.0f;
+                  bf16* __restrict__ o, int C, int N, int bn, int tiles,
+                  int items, bool vec) {
+  constexpr int KT = CPAD / 16;  // 16-wide tiles of the weight, each way
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int ld = bn + 8;
+  const int tile_elems = CPAD * ld;
+  bf16* ws = reinterpret_cast<bf16*>(smem);  // (CPAD, CPAD)
+  bf16* ring = ws + CPAD * CPAD;             // kPerpixStages x (CPAD, ld)
+  bf16* ot = ring + kPerpixStages * tile_elems;  // (CPAD, ld)
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const bf16 zero = __float2bfloat16_rn(0.0f);
+
+  for (int i = tid; i < CPAD * CPAD; i += kPerpixThreads) {
+    const int c = i / CPAD, k = i % CPAD;
+    ws[i] = (c < C && k < C) ? wt[c * C + k] : zero;
   }
+  for (int s = 0; s < kPerpixStages; ++s)  // rows C..CPAD-1: no copy writes them
+    for (int i = tid; i < (CPAD - C) * ld; i += kPerpixThreads)
+      ring[s * tile_elems + C * ld + i] = zero;
   __syncthreads();
 
-  const size_t base = (size_t)blockIdx.x * C * N;
-  const bf16* xs = x + base;
-  bf16* os = o + base;
-  for (int n0 = 2 * threadIdx.x; n0 < N; n0 += 2 * blockDim.x) {
-    const bool two = n0 + 1 < N;
-    float acc[CMAX][2];
+  // A fragments (m16n8k16, row major): a[m][k] holds rows 16m + g and
+  // 16m + g + 8, columns 16k + 2t + {0, 1} and 16k + 2t + 8 + {0, 1}
+  const int g = lane >> 2, t = lane & 3;
+  uint32_t a[KT][KT][4];
 #pragma unroll
-    for (int c = 0; c < CMAX; ++c) acc[c][0] = acc[c][1] = 0.0f;
-    for (int k0 = 0; k0 < C; k0 += kKChunk) {
-      float xv[kKChunk][2];
+  for (int m = 0; m < KT; ++m)
 #pragma unroll
-      for (int j = 0; j < kKChunk; ++j) {
-        const int k = k0 + j;
-        const bf16* row = xs + (size_t)k * N + n0;
-        xv[j][0] = k < C ? __bfloat162float(row[0]) : 0.0f;
-        xv[j][1] = (k < C && two) ? __bfloat162float(row[1]) : 0.0f;
+    for (int k = 0; k < KT; ++k) {
+      const bf16* p = ws + (16 * m + g) * CPAD + 16 * k + 2 * t;
+      a[m][k][0] = *reinterpret_cast<const uint32_t*>(p);
+      a[m][k][1] = *reinterpret_cast<const uint32_t*>(p + 8 * CPAD);
+      a[m][k][2] = *reinterpret_cast<const uint32_t*>(p + 8);
+      a[m][k][3] = *reinterpret_cast<const uint32_t*>(p + 8 * CPAD + 8);
+    }
+
+  // x[pix][:, tile columns] -> dst (C rows of the tile; columns past N zero)
+  auto load = [&](bf16* dst, int pix, int tile) {
+    const int n0 = tile * bn, valid = min(bn, N - n0);
+    const bf16* src = x + (size_t)pix * C * N + n0;
+    if (vec) {
+      const int cpr = bn >> 3, full = valid >> 3;  // 16-byte chunks per row
+      for (int i = tid; i < C * cpr; i += kPerpixThreads) {
+        const int r = i / cpr, j = i - r * cpr;
+        const bf16* row = src + (size_t)r * N;
+        cp_async16(smem_u32(dst + r * ld + 8 * j), j < full ? row + 8 * j : row,
+                   j < full ? 16 : 0);
       }
+    } else {
+      for (int i = tid; i < C * bn; i += kPerpixThreads) {
+        const int r = i / bn, j = i - r * bn;
+        dst[r * ld + j] = j < valid ? src[(size_t)r * N + j] : zero;
+      }
+    }
+  };
+  // the output tile's rows c < C, columns n < N -> o[pix]
+  auto store = [&](int pix, int tile) {
+    const int n0 = tile * bn, valid = min(bn, N - n0);
+    bf16* dst = o + (size_t)pix * C * N + n0;
+    if (vec) {
+      const int cpr = valid >> 3;
+      for (int i = tid; i < C * cpr; i += kPerpixThreads) {
+        const int r = i / cpr, j = i - r * cpr;
+        *reinterpret_cast<uint4*>(dst + (size_t)r * N + 8 * j) =
+            *reinterpret_cast<const uint4*>(ot + r * ld + 8 * j);
+      }
+    } else {
+      for (int i = tid; i < C * valid; i += kPerpixThreads) {
+        const int r = i / valid, j = i - r * valid;
+        dst[(size_t)r * N + j] = ot[r * ld + j];
+      }
+    }
+  };
+
+  const int first = (int)((long long)items * blockIdx.x / gridDim.x);
+  const int count = (int)((long long)items * (blockIdx.x + 1) / gridDim.x) - first;
+  constexpr int pending = kPerpixStages - 1;  // copy groups in flight behind the item in use
+  int load_pix = first / tiles, pix = load_pix;
+  int load_tile = first % tiles, tile = load_tile;
+  int load_buf = 0, buf = 0;
+  auto load_next = [&]() {
+    load(ring + load_buf * tile_elems, load_pix, load_tile);
+    if (++load_buf == kPerpixStages) load_buf = 0;
+    if (++load_tile == tiles) load_tile = 0, ++load_pix;
+  };
+
+  for (int s = 0; s < pending; ++s) {
+    if (s < count) load_next();
+    cp_async_commit();  // empty groups keep the count of groups regular
+  }
+  for (int i = 0; i < count; ++i) {
+    // the buffer it fills was last read before the previous item's second sync
+    if (i + pending < count) load_next();
+    cp_async_commit();
+    cp_async_wait<pending>();  // item i's group has landed
+    __syncthreads();
+
+    const bf16* xs = ring + buf * tile_elems;
+    const int strips = (min(bn, N - tile * bn) + 15) >> 4;
+    for (int s = warp; s < strips; s += kPerpixWarps) {
+      const int n0 = 16 * s;
+      uint32_t b[KT][4];
 #pragma unroll
-      for (int j = 0; j < kKChunk; ++j) {
-        // k0 + j < CMAX: CMAX is a multiple of kKChunk and k0 < C <= CMAX
-        const float4* wk = reinterpret_cast<const float4*>(ws + (k0 + j) * CMAX);
+      for (int k = 0; k < KT; ++k)
+        ldmatrix_x4_trans(b[k], smem_u32(xs + (16 * k + (lane & 15)) * ld + n0 + (lane >> 4) * 8));
 #pragma unroll
-        for (int c4 = 0; c4 < CMAX / 4; ++c4) {
-          const float4 w = wk[c4];
-          acc[4 * c4 + 0][0] += w.x * xv[j][0];
-          acc[4 * c4 + 0][1] += w.x * xv[j][1];
-          acc[4 * c4 + 1][0] += w.y * xv[j][0];
-          acc[4 * c4 + 1][1] += w.y * xv[j][1];
-          acc[4 * c4 + 2][0] += w.z * xv[j][0];
-          acc[4 * c4 + 2][1] += w.z * xv[j][1];
-          acc[4 * c4 + 3][0] += w.w * xv[j][0];
-          acc[4 * c4 + 3][1] += w.w * xv[j][1];
+      for (int m = 0; m < KT; ++m) {
+        float d[2][4] = {};
+#pragma unroll
+        for (int k = 0; k < KT; ++k) {
+          mma_bf16(d[0], a[m][k], b[k][0], b[k][1]);
+          mma_bf16(d[1], a[m][k], b[k][2], b[k][3]);
+        }
+        // accumulator: rows 16m + g (d[h][0..1]) and + 8 (d[h][2..3]),
+        // columns n0 + 8h + 2t + {0, 1}
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          bf16* p = ot + (16 * m + g) * ld + n0 + 8 * h + 2 * t;
+          *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(d[h][0], d[h][1]);
+          *reinterpret_cast<__nv_bfloat162*>(p + 8 * ld) =
+              __floats2bfloat162_rn(d[h][2], d[h][3]);
         }
       }
     }
-#pragma unroll
-    for (int c = 0; c < CMAX; ++c) {
-      if (c < C) {
-        bf16* row = os + (size_t)c * N + n0;
-        row[0] = __float2bfloat16_rn(acc[c][0]);
-        if (two) row[1] = __float2bfloat16_rn(acc[c][1]);
-      }
-    }
+    __syncthreads();
+    store(pix, tile);
+    if (++buf == kPerpixStages) buf = 0;
+    if (++tile == tiles) tile = 0, ++pix;
   }
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
 __device__ __forceinline__ uint32_t pack(bf16 a, bf16 b) {
@@ -260,16 +411,33 @@ __global__ void __launch_bounds__(kReduceX * kReduceY)
   }
 }
 
-template <int CMAX>
-int launch_perpix(const bf16* x, const bf16* wt, bf16* o, long long npix,
-                  int C, int N, cudaStream_t stream) {
-  // as few column-pair rounds as 256 threads allow, then as few threads
-  // as those rounds need (N = 800: 2 rounds of 224 threads)
-  const int pairs = (N + 1) / 2;
-  const int rounds = (pairs + kPerpixThreads - 1) / kPerpixThreads;
-  const int per_round = (pairs + rounds - 1) / rounds;
-  const int threads = (per_round + 31) / 32 * 32;
-  perpix_kernel<CMAX><<<(unsigned)npix, threads, 0, stream>>>(x, wt, o, C, N);
+// lets perpix_kernel<CPAD> take a block's most shared memory on the current
+// device; the attribute is set once per device
+template <int CPAD>
+cudaError_t allow_smem() {
+  static std::atomic<uint64_t> done{0};  // one bit per device
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const uint64_t bit = 1ULL << (dev & 63);
+  if (done.load() & bit) return cudaSuccess;
+  err = cudaFuncSetAttribute(perpix_kernel<CPAD>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxBlockSmem);
+  if (err == cudaSuccess) done.fetch_or(bit);
+  return err;
+}
+
+template <int CPAD>
+int launch_perpix(const bf16* x, const bf16* wt, bf16* o, long long npix, int C,
+                  int N, int bn, int smem_bytes, int grid, cudaStream_t stream) {
+  if (smem_bytes > kStaticSmem) {
+    const cudaError_t err = allow_smem<CPAD>();
+    if (err != cudaSuccess) return (int)err;
+  }
+  const bool vec = (uintptr_t)x % 16 == 0 && (uintptr_t)o % 16 == 0 && N % 8 == 0;
+  const int tiles = (N + bn - 1) / bn;
+  perpix_kernel<CPAD><<<grid, kPerpixThreads, smem_bytes, stream>>>(
+      x, wt, o, C, N, bn, tiles, (int)(npix * tiles), vec);
   return (int)cudaGetLastError();
 }
 
@@ -292,21 +460,29 @@ extern "C" int tdeed_probe_stream(const void* x, void* y, long long n,
 }
 
 // x, o: (npix, C, N) bf16; wt: (C, C) bf16; all contiguous on the current
-// device, 1 <= C <= 64. o[p] = bf16(wt @ x[p]) with fp32 sums.
+// device, 1 <= C <= 64. o[p] = bf16(wt @ x[p]) with fp32 sums. The launch
+// plan (kernels/probe.py:perpix_plan): c_pad in {16, 32, 48, 64}, at least
+// C; bn a multiple of 16; smem_bytes at least what the tiles take, at most
+// 227 KB; 1 <= grid <= items = npix * ceil(N / bn) <= INT_MAX.
 extern "C" int tdeed_probe_perpix(const void* x, const void* wt, void* o,
-                                  long long npix, int C, int N, void* stream) {
-  if (npix <= 0 || npix > INT_MAX || C < 1 || C > kMaxC || N < 1)
+                                  long long npix, int C, int N, int c_pad,
+                                  int bn, int smem_bytes, int grid, void* stream) {
+  if (npix <= 0 || npix > INT_MAX || C < 1 || C > kMaxC || N < 1 ||
+      c_pad < C || c_pad % 16 != 0 || c_pad > kMaxC || bn < 16 || bn % 16 != 0 ||
+      smem_bytes < perpix_smem(c_pad, bn) || smem_bytes > kMaxBlockSmem)
     return (int)cudaErrorInvalidValue;
+  const long long items = npix * ((N + (long long)bn - 1) / bn);
+  if (items > INT_MAX || grid < 1 || grid > items) return (int)cudaErrorInvalidValue;
   const bf16* xp = static_cast<const bf16*>(x);
   const bf16* wp = static_cast<const bf16*>(wt);
   bf16* op = static_cast<bf16*>(o);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (C <= 8) return launch_perpix<8>(xp, wp, op, npix, C, N, s);
-  if (C <= 16) return launch_perpix<16>(xp, wp, op, npix, C, N, s);
-  if (C <= 24) return launch_perpix<24>(xp, wp, op, npix, C, N, s);
-  if (C <= 32) return launch_perpix<32>(xp, wp, op, npix, C, N, s);
-  if (C <= 48) return launch_perpix<48>(xp, wp, op, npix, C, N, s);
-  return launch_perpix<64>(xp, wp, op, npix, C, N, s);
+  switch (c_pad) {
+    case 16: return launch_perpix<16>(xp, wp, op, npix, C, N, bn, smem_bytes, grid, s);
+    case 32: return launch_perpix<32>(xp, wp, op, npix, C, N, bn, smem_bytes, grid, s);
+    case 48: return launch_perpix<48>(xp, wp, op, npix, C, N, bn, smem_bytes, grid, s);
+    default: return launch_perpix<64>(xp, wp, op, npix, C, N, bn, smem_bytes, grid, s);
+  }
 }
 
 // x, o: (npix, C, N) bf16; partial: (nparts, C, C) fp32 scratch; acc:

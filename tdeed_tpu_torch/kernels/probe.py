@@ -11,19 +11,25 @@ with C <= 64 and wt (C, C) bf16.
 A CUDA tensor launches the kernel (csrc/probe.cu) on the current stream
 and adds one to ``<fn>.launches``; a CPU tensor runs the plain version
 (``*_reference``), because the caller asked for the CPU. Any other device
-raises. There is no fallback from one to the other.
+raises. There is no fallback from one to the other. perpix's launch plan
+is ``perpix_plan``, a pure function the CPU tests check.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+from dataclasses import dataclass
 
 import torch
 
 SCALE = 1.03125  # exact in bf16: x * SCALE rounds once
 MAX_C = 64
 OUTERP_PARTIALS = 512  # blocks of outerp's first pass, each one fp32 (C, C) partial
+
+PERPIX_STAGES = 3  # csrc/probe.cu:kPerpixStages, tiles in a block's ring
+H100_SMS = 132
+BLOCK_SHARED_MAX = 232_448  # 227 KB: the most one block may use on sm_90
 
 
 def stream_reference(x: torch.Tensor) -> torch.Tensor:
@@ -64,6 +70,45 @@ def _check(x: torch.Tensor, wt=None) -> None:
         raise ValueError("wt must be contiguous")
 
 
+@dataclass(frozen=True)
+class PerpixPlan:
+    """How the perpix kernel covers (npix, C, N): work items are (pixel,
+    column tile) in order, ``tiles`` tiles of ``bn`` columns per pixel (the
+    last one ragged); block b of ``grid`` takes items [items * b // grid,
+    items * (b + 1) // grid), as csrc/probe.cu:perpix_kernel computes it."""
+
+    c: int
+    n: int
+    npix: int
+    c_pad: int  # C rounded up to 16: the kernel's instantiation
+    bn: int  # columns of a tile, a multiple of 16
+    tiles: int
+    smem_bytes: int  # dynamic shared memory of one block
+    grid: int
+
+
+def perpix_plan(c: int, n: int, npix: int, sms: int = H100_SMS) -> PerpixPlan:
+    """The perpix launch for npix pixels of (C, N): C padded to the next
+    multiple of 16; shared memory per block for the (C_pad, C_pad) weight,
+    the ring of PERPIX_STAGES tiles and an output tile, each (C_pad,
+    bn + 8), within a block's 227 KB (the layout of csrc/probe.cu:
+    perpix_smem, which refuses a smaller figure); the fewest tiles per pixel
+    whose width fits that, cut evenly and rounded up to 16; one block per
+    SM, or one per item if fewer."""
+    if not (1 <= c <= MAX_C and n >= 1 and npix >= 1):
+        raise ValueError(f"perpix takes 1 <= C <= {MAX_C}, N >= 1, npix >= 1; "
+                         f"got C={c} N={n} npix={npix}")
+    c_pad = -(-c // 16) * 16
+    per_column = 2 * (PERPIX_STAGES + 1) * c_pad  # bf16 bytes of a column of the tiles
+    bn_cap = ((BLOCK_SHARED_MAX - 2 * c_pad * c_pad) // per_column - 8) // 16 * 16
+    tiles = -(-n // bn_cap)
+    bn = -(-(-(-n // tiles)) // 16) * 16
+    if npix * tiles > 2**31 - 1:  # the kernel counts items in 32 bits
+        raise ValueError(f"perpix takes at most 2^31 - 1 work items, got {npix * tiles}")
+    return PerpixPlan(c, n, npix, c_pad, bn, tiles,
+                      2 * c_pad * c_pad + per_column * (bn + 8), min(npix * tiles, sms))
+
+
 @functools.lru_cache(maxsize=None)
 def _lib():
     from tdeed_tpu_torch.kernels.build import load
@@ -71,11 +116,16 @@ def _lib():
     lib = load("probe").lib
     ptr, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
     lib.tdeed_probe_stream.argtypes = [ptr, ptr, i64, ptr]
-    lib.tdeed_probe_perpix.argtypes = [ptr, ptr, ptr, i64, i32, i32, ptr]
+    lib.tdeed_probe_perpix.argtypes = [ptr, ptr, ptr, i64, i32, i32, i32, i32, i32, i32, ptr]
     lib.tdeed_probe_outerp.argtypes = [ptr, ptr, ptr, ptr, i64, i32, i32, i32, ptr]
     for fn in (lib.tdeed_probe_stream, lib.tdeed_probe_perpix, lib.tdeed_probe_outerp):
         fn.restype = ctypes.c_int
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def _on_card(x: torch.Tensor, what: str) -> bool:
@@ -107,14 +157,24 @@ def stream(x: torch.Tensor) -> torch.Tensor:
 
 def perpix(x: torch.Tensor, wt: torch.Tensor) -> torch.Tensor:
     """Per pixel (h, w): bf16(wt @ x[h, w]), fp32 sums; x (H, W, C, N) and
-    wt (C, C) bf16."""
+    wt (C, C) bf16.
+
+    On the card: bf16 tensor-core MMAs (fp32 sums, within 1 bf16 ulp of
+    ``perpix_reference``; two calls give the same bits) on tiles of C rows
+    of a pixel that cp.async brings into shared memory, one block per SM
+    walking its items through a ring of three tiles, as
+    ``perpix_plan(C, N, H * W)`` lays them out for the card's SMs. A
+    misaligned x or N % 8 != 0 takes the kernel's element-wise copies
+    instead of its 16-byte ones."""
     if not _on_card(x, "perpix"):
         return perpix_reference(x, wt)
     _check(x, wt)
     h, w, c, n = x.shape
+    p = perpix_plan(c, n, h * w, _sm_count(x.device))
     o = torch.empty_like(x)
     _launch("perpix", _lib().tdeed_probe_perpix, x,
-            x.data_ptr(), wt.data_ptr(), o.data_ptr(), h * w, c, n)
+            x.data_ptr(), wt.data_ptr(), o.data_ptr(), h * w, c, n,
+            p.c_pad, p.bn, p.smem_bytes, p.grid)
     perpix.launches += 1
     return o
 

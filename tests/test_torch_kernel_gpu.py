@@ -13,8 +13,10 @@ further. Near 0 the standardization (c - mean) / std cancels, and the
 plain version on the card divides by a scalar as a multiply by its
 reciprocal: the two differ there by ~1e-6 absolute (measured on an H100).
 The probe: stream and outerp's pass-through bit-exact; perpix 1 bf16 ulp,
-floored the same way (fp32 sums in another order); outerp's fp32 (C, C)
-sum within 1e-5 of its largest entry against a float64 sum.
+floored the same way (the tensor cores add each k16 step's fp32 products
+in their own order), and the same bits from every call;
+outerp's fp32 (C, C) sum within 1e-5 of its largest entry against a
+float64 sum.
 """
 
 import pytest
@@ -120,18 +122,64 @@ def test_probe_stream_is_bit_exact(cuda, shape):
         assert torch.equal(probe.stream(tail), probe.stream_reference(tail))
 
 
-@pytest.mark.parametrize(
-    "shape", [(16, 16, 24, 800), (16, 8, 48, 800), (3, 5, 20, 37), (2, 3, 64, 129), (2, 2, 1, 5)],
+PERPIX_CS = (1, 15, 16, 17, 24, 33, 48, 63, 64)  # each side of each 16-row padding edge
+# 16-byte rows or not; one tile, several (at C = 48 and up from 800, at
+# every C at 1904), ragged
+PERPIX_NS = (1, 8, 9, 37, 160, 800, 801, 1904)
+# one pixel, and 600 pixels: more work items than the grid has blocks
+PERPIX_SHAPES = (
+    [(16, 16, 24, 800), (16, 8, 48, 800), (3, 5, 20, 37), (2, 3, 64, 129), (2, 2, 1, 5)]
+    + [(1, 1, c, n) for c in PERPIX_CS for n in PERPIX_NS]
+    + [(20, 30, c, n) for c in PERPIX_CS for n in PERPIX_NS]
 )
+
+
+def _perpix_weight(c, device):
+    wt = torch.randn(c, c, generator=torch.Generator().manual_seed(1)) / c ** 0.5
+    return wt.to(torch.bfloat16).to(device)
+
+
+def _misaligned_probe_x(shape, device):
+    """x as x.view(-1)[1:] of a buffer one element longer: 2 bytes off 16."""
+    flat = _probe_x((torch.Size(shape).numel() + 1,), device)
+    x = flat[1:].view(shape)
+    assert x.data_ptr() % 16 != 0
+    return x
+
+
+@pytest.mark.parametrize("shape", PERPIX_SHAPES)
 def test_probe_perpix_matches_reference(cuda, shape):
-    c = shape[2]
-    x = _probe_x(shape, cuda)
-    wt = (torch.randn(c, c, generator=torch.Generator().manual_seed(1)) / c ** 0.5)
-    wt = wt.to(torch.bfloat16).to(cuda)
-    got = probe.perpix(x, wt)
+    wt = _perpix_weight(shape[2], cuda)
+    for x in (_probe_x(shape, cuda), _misaligned_probe_x(shape, cuda)):
+        got = probe.perpix(x, wt)
+        torch.cuda.synchronize()
+        assert got.dtype == torch.bfloat16 and got.shape == x.shape
+        _assert_within_bf16_ulp(got, probe.perpix_reference(x, wt))
+
+
+@pytest.mark.parametrize("shape", [(16, 16, 24, 800), (16, 8, 48, 800), (20, 30, 17, 37)])
+def test_probe_perpix_gives_the_same_bits_twice(cuda, shape):
+    wt = _perpix_weight(shape[2], cuda)
+    for x in (_probe_x(shape, cuda), _misaligned_probe_x(shape, cuda)):
+        assert torch.equal(probe.perpix(x, wt), probe.perpix(x, wt))
+
+
+def test_probe_perpix_entry_refuses_a_bad_plan(cuda):
+    x = _probe_x((2, 2, 24, 160), cuda)
+    o = torch.empty_like(x)
+    wt = _perpix_weight(24, cuda)
+    p = probe.perpix_plan(24, 160, 4)
+    good = (p.c_pad, p.bn, p.smem_bytes, p.grid)
+    lib = probe._lib()
+    stream = torch.cuda.current_stream().cuda_stream
+    for bad in ((16, *good[1:]), (p.c_pad, 8, *good[2:]), (*good[:2], p.smem_bytes - 2, p.grid),
+                (*good[:2], 232_448 + 16, p.grid), (*good[:3], 4 * p.tiles + 1), (*good[:3], 0)):
+        assert lib.tdeed_probe_perpix(x.data_ptr(), wt.data_ptr(), o.data_ptr(),
+                                      4, 24, 160, *bad, stream) != 0, bad
+    assert lib.tdeed_probe_perpix(x.data_ptr(), wt.data_ptr(), o.data_ptr(),
+                                  4, 24, 160, *good, stream) == 0
     torch.cuda.synchronize()
-    assert got.dtype == torch.bfloat16 and got.shape == x.shape
-    _assert_within_bf16_ulp(got, probe.perpix_reference(x, wt))
+    _assert_within_bf16_ulp(o, probe.perpix_reference(x, wt))
 
 
 @pytest.mark.parametrize("shape", [(16, 16, 24, 800), (3, 5, 20, 37), (2, 3, 64, 300), (1, 1, 1, 1)])

@@ -169,6 +169,81 @@ def test_kernel_wrapper_rejects_what_the_kernel_does_not_take(x, wt, error):
     probe._check(_x((2, 2, 8, 16)), _x((8, 8)))  # a valid pair passes
 
 
+PLAN_NS = (1, 7, 8, 9, 15, 16, 17, 37, 129, 160, 161, 320, 800, 801, 1000, 4099)
+
+
+def _plan_smem(c_pad, bn):
+    """csrc/probe.cu:perpix_smem: the weight, a ring of three tiles and an
+    output tile, each (c_pad, bn + 8) bf16."""
+    return 2 * c_pad * c_pad + 2 * (3 + 1) * c_pad * (bn + 8)
+
+
+@pytest.mark.parametrize("n", PLAN_NS)
+def test_perpix_plan_fits_the_card_for_every_c(n):
+    """For every C <= 64: C padded to the next multiple of 16, tiles that
+    are multiples of 16 with none empty, one block's shared memory within
+    227 KB, the fewest such tiles, one block per SM or per item."""
+    for c in range(1, probe.MAX_C + 1):
+        for npix in (1, 5, 12544):
+            p = probe.perpix_plan(c, n, npix)
+            assert p.c_pad % 16 == 0 and c <= p.c_pad < c + 16
+            assert p.bn % 16 == 0 and p.bn >= 16
+            assert (p.tiles - 1) * p.bn < n <= p.tiles * p.bn
+            assert p.smem_bytes == _plan_smem(p.c_pad, p.bn) <= probe.BLOCK_SHARED_MAX
+            assert p.grid == min(npix * p.tiles, probe.H100_SMS)
+            if p.tiles > 1:  # the fewest tiles: the width of one fewer does not fit
+                bn = -(-(-(-n // (p.tiles - 1))) // 16) * 16
+                assert _plan_smem(p.c_pad, bn) > probe.BLOCK_SHARED_MAX
+
+
+@pytest.mark.parametrize(
+    "c,n,npix",
+    [(24, 800, 1), (48, 800, 3), (1, 1, 1), (17, 37, 600), (64, 801, 700), (33, 9, 2000),
+     (24, 160, 1000), (15, 129, 64), (16, 1904, 300), (64, 4099, 5)],
+)
+def test_perpix_plan_covers_every_pixel_and_column_once(c, n, npix):
+    """The blocks' item ranges, taken as the kernel takes them (block b:
+    items [items * b // grid, items * (b + 1) // grid), item i: pixel
+    i // tiles, columns from (i % tiles) * bn), cover each (pixel, column)
+    of the output exactly once."""
+    p = probe.perpix_plan(c, n, npix)
+    items = npix * p.tiles
+    hits = np.zeros((npix, n), np.int32)
+    ends = []
+    for b in range(p.grid):
+        lo_item, hi_item = items * b // p.grid, items * (b + 1) // p.grid
+        assert hi_item > lo_item  # no block without work
+        ends.append((lo_item, hi_item))
+        for item in range(lo_item, hi_item):
+            pix, tile = divmod(item, p.tiles)
+            lo, hi = tile * p.bn, min(n, (tile + 1) * p.bn)
+            assert 0 < hi - lo <= p.bn
+            hits[pix, lo:hi] += 1
+    assert ends[0][0] == 0 and ends[-1][1] == items
+    assert all(a[1] == b[0] for a, b in zip(ends, ends[1:]))  # contiguous, in order
+    assert (hits == 1).all()
+
+
+def test_perpix_plan_at_the_tool_shapes():
+    """The plans the probe tool runs, one block per SM: at C = 24 a whole
+    pixel per tile (204 KB of shared memory), at the stacked C = 48 half a
+    pixel (158 KB)."""
+    p24 = probe.perpix_plan(24, 800, 112 * 112)
+    assert (p24.c_pad, p24.bn, p24.tiles, p24.smem_bytes, p24.grid) == (32, 800, 1, 208_896, 132)
+    p48 = probe.perpix_plan(48, 800, 112 * 56)
+    assert (p48.c_pad, p48.bn, p48.tiles, p48.smem_bytes, p48.grid) == (48, 400, 2, 161_280, 132)
+    assert probe.perpix_plan(16, 8, 1).smem_bytes <= 48 * 1024  # no opt-in attribute needed
+    assert probe.perpix_plan(24, 800, 10, sms=4).grid == 4
+    with pytest.raises(ValueError):
+        probe.perpix_plan(65, 800, 1)
+    with pytest.raises(ValueError):
+        probe.perpix_plan(24, 0, 1)
+    with pytest.raises(ValueError):
+        probe.perpix_plan(24, 800, 0)
+    with pytest.raises(ValueError):  # 2^32 work items
+        probe.perpix_plan(1, 2048 * 2**12, 2**20)
+
+
 @pytest.mark.parametrize("fn", [probe.stream, probe.outerp, lambda x: probe.perpix(x, x[0, 0])])
 def test_wrappers_refuse_devices_other_than_cuda_and_cpu(fn):
     with pytest.raises(ValueError, match="cuda or cpu"):

@@ -11,7 +11,9 @@ Phases, each fatal on failure:
   3. kernel: the photometric kernel against its plain PyTorch version on
      the card, all 64 gate combinations (hue, saturation, brightness,
      contrast, blur, flip), uint8 and bf16 input, 224x224 and 448x796; then
-     both timed at the flagship shape (8, 100, 224, 224, 3) bf16;
+     at the flagship shape (8, 100, 224, 224, 3) bf16 against the plain
+     version and against its own second call (the same bits), and both
+     timed there; the kernel also with every gate on in every clip;
   3b. probe: the probe tool (tdeed_tpu_torch.tools.profile_probe) on the
      card at its full shape (112, 112, 24, 800), which must launch each of
      the three probe kernels; then each kernel against its plain version at
@@ -58,9 +60,9 @@ REQUESTS = 3
 REQUEST_CLIPS = 4
 TRAIN_STEPS = 3
 KERNEL_SOURCES = ("photometric", "probe")
-# fp32 operations per pixel of the photometric chain as csrc/photometric.cu
-# writes it (each add, sub, mul, div, min, max and floor once), for the
-# gates that are on; a gate that is off needs none: /255 and the
+# fp32 operations per pixel of the photometric chain (each add, sub, mul,
+# div, min, max and floor once; the blur as two separable 5-tap passes), for
+# the gates that are on; a gate that is off needs none: /255 and the
 # standardization 9; hue 32; saturation 21; brightness 9; contrast 16, and
 # 6 more for the frame's gray mean; blur 2 x 27
 K1_OPS_ALWAYS = 9
@@ -154,6 +156,7 @@ def _time_ms(torch, fn, iters):
 def kernel_phase(torch):
     from tdeed_tpu_torch.kernels.augment import (
         photometric,
+        photometric_plan,
         photometric_reference,
         sample_params,
     )
@@ -183,15 +186,27 @@ def kernel_phase(torch):
     max_err = max(max_err, _check_close(
         torch, got, photometric_reference(frames, p8), f"bf16 {FLAGSHIP}, sampled params",
         BF16_ULP_AT_2))
+    same = torch.equal(got, photometric(frames, p8))
+    log(f"[kernel] flagship: two calls give the same bits: {same}")
+    if not same:
+        fail("two calls of the photometric kernel differ")
     del got
+    every = p8.clone()
+    every[:, [0, 2, 4, 6, 8, 14]] = 1.0  # hue sat bri con blur flip
     ms = _time_ms(torch, lambda: photometric(frames, p8), 20)
     plain_ms = _time_ms(torch, lambda: photometric_reference(frames, p8), 3)
+    ms_all = _time_ms(torch, lambda: photometric(frames, every), 20)
     ms2 = _time_ms(torch, lambda: photometric(frames, p8), 20)
     moved = 2 * frames.numel() * 2  # bf16 in + bf16 out
     bound_ms, bound_by = _k1_bound(p8, moved)
-    log(f"[kernel] flagship {FLAGSHIP} bf16: kernel {ms:.3f} ms then {ms2:.3f} ms "
-        f"({moved / (min(ms, ms2) * 1e-3) / 1e9:.0f} GB/s of the 482 MB moved), "
-        f"plain PyTorch {plain_ms:.3f} ms; bound {bound_ms:.4f} ms ({bound_by})")
+    bound_all, bound_all_by = _k1_bound(every, moved)
+    plan = photometric_plan(*FLAGSHIP[2:4], frames.dtype)
+    plan = {k: getattr(plan, k) for k in ("cluster", "rows", "chunk", "smem_bytes")}
+    log(f"[kernel] flagship {FLAGSHIP} bf16, plan {plan}: kernel {ms:.3f} ms then "
+        f"{ms2:.3f} ms ({moved / (min(ms, ms2) * 1e-3) / 1e9:.0f} GB/s of the 482 MB "
+        f"moved), plain PyTorch {plain_ms:.3f} ms; bound {bound_ms:.4f} ms ({bound_by})")
+    log(f"[kernel] flagship, every gate on in every clip: ms_all_gates {ms_all:.3f}, "
+        f"bound {bound_all:.4f} ms ({bound_all_by}), {bound_all / ms_all:.0%} of it")
     return {
         "name": "photometric",
         "route": "cuda",
@@ -203,6 +218,9 @@ def kernel_phase(torch):
         "bound_ms": bound_ms,
         "bound_by": bound_by,
         "library_ms": None,  # no one PyTorch call computes the chain
+        "plan": plan,
+        "ms_all_gates": ms_all,
+        "bound_all_gates_ms": bound_all,
     }
 
 

@@ -1,4 +1,4 @@
-// Fused photometric augmentation for Hopper (sm_90a).
+// Fused photometric augmentation for Hopper (sm_90a), kernel K1.
 //
 // Replaces: tdeed_tpu/kernels/augment.py:photometric_planar, the Pallas TPU
 // kernel of the training step's input augmentation. Same function, read
@@ -12,48 +12,103 @@
 //
 // What bounds it on an H100: memory bytes. At the flagship shape
 // (8 x 100 x 224 x 224 x 3, bf16 mixup blend in) the kernel must read 241 MB
-// and write 241 MB; the pointwise chain is ~100 fp32 operations per pixel,
-// far below the card's ratio of operations to bytes.
+// and write 241 MB, 0.144 ms at 3.35 TB/s; the chain is at most ~150 fp32
+// operations a pixel (every gate on), 0.09 ms on the CUDA cores.
 //
-// Design. The TPU kernel kept a whole frame in VMEM (up to 110 MB); a block
-// here has 227 KB of shared memory, and one 448x796 fp32 frame is 4.3 MB,
-// so the frame is tiled and the contrast mean (a whole-frame reduction) is
-// a separate first pass:
-//   pass 1: one block per frame reduces the gray mean after hue,
-//           saturation and brightness (skipped when contrast is off);
-//   pass 2: one thread per output pixel over (frame, 8-row x 32-column
-//           tiles). With blur on, the block recomputes the pointwise chain
-//           on its tile plus a 2-pixel reflected halo into shared memory,
-//           then runs the vertical and the horizontal 5-tap pass there.
-// The hflip is a reversed source column (the chain commutes with the flip,
-// so flipping the input equals the reference's flip at the end). Gates are
-// uniform per clip, hence per block: no divergence. It allocates nothing
-// and never synchronizes; the caller gives the per-frame mean scratch.
-// This is the first, simple version: no vectorized loads, no TMA. On an
-// H100 80GB HBM3 at 700 W it takes 0.73 ms at the flagship shape, 664 GB/s
-// or 20% of the card's 3.35 TB/s; the plain PyTorch chain takes 31 ms.
+// Design: one launch. Each frame is a thread-block cluster of `cluster`
+// CTAs (kernels/augment.py:photometric_plan; 4 at 224 rows); CTA r of the
+// cluster owns the band of rows [r * rows, min(H, (r + 1) * rows)), a
+// contiguous range of the frame, and walks it in chunks of `chunk` rows.
+//   - I/O: a chunk's input rows are one contiguous range, copied to shared
+//     memory with 16-byte cp.async (the misaligned head and tail element by
+//     element), several stages deep so that the next chunks' copies are in
+//     flight while this one is computed: 4 for sweeps without the blur,
+//     which take the blur's ring's room, 2 with it. Outputs go to
+//     a shared tile laid out with the destination's alignment and leave as
+//     16-byte stores.
+//   - Contrast mean (clips with contrast on; the gate is the cluster's):
+//     each CTA sweeps its band once for a partial gray sum; after
+//     cluster.sync() every CTA adds all partials through distributed shared
+//     memory in rank order, so all agree and two calls give the same bits.
+//     No atomics, no scratch. The output sweep then reads the band again,
+//     mostly from L2 (a band is ~75 KB of bf16 at 224^2). Clips without
+//     contrast sweep once.
+//   - Blur: a ring of chunk + 4 rows of post-contrast fp32 values in shared
+//     memory; a chunk computes the chain on its new rows only, so a band
+//     recomputes 2 rows above and 2 below it. The horizontal pass goes
+//     first: a lane owns a column in every chunk and walks it down the
+//     chunk's new rows, taking the 5-tap sum from its neighbour lanes by
+//     warp shuffles (a warp blurs 28 columns; its 2 lanes at each end
+//     compute their columns only for their neighbours), into the ring. The
+//     vertical pass then walks the lane's own ring column (its own writes,
+//     so no barrier) with its 5-row window in registers, straight to the
+//     output tile. Row and column indices and reflections are worked out
+//     once per row or column, not per element. (The plain chain blurs
+//     vertically first; the order changes fp32 rounding only.)
+// The hflip is a reversed source column (the chain commutes with the
+// flip). Gates are uniform per clip, hence per cluster: no divergence.
 //
-// Numerics: fp32 throughout, compiled with --fmad=false and without fast
-// math so every multiply and add rounds as in the fp32 reference chain;
-// hue uses x - floor(x) for Python's floor-mod (h can be negative).
+// Numerics: fp32 throughout, FMA on, no fast math. Divisions by constants
+// are multiplies by reciprocals, hue's three divisions by `safe` one
+// reciprocal and three multiplies; within 1 bf16 ulp of the plain chain
+// (chip_smoke.py, tests/test_torch_kernel_gpu.py). Hue uses x - floor(x)
+// for Python's floor-mod (h can be negative).
+//
+// Time: see PERF.md (NVIDIA H100 80GB HBM3, 700 W).
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <stdint.h>
+
+#include <atomic>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
+typedef __nv_bfloat16 bf16;
+
 constexpr int kNumParams = 16;
-constexpr int kTileW = 32;
-constexpr int kTileH = 8;
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr int kMinBlocks = 3;  // per SM: a register cap of 85
 constexpr int kHalo = 2;
-constexpr int kThreads = kTileW * kTileH;
-constexpr int kPass1Threads = 256;
+constexpr int kOwned = 32 - 2 * kHalo;  // columns a warp blurs in a pass
+constexpr int kMaxCluster = 8;  // portable cluster size
+constexpr int kMaxChunk = 8;
+constexpr int kDeep = 4;  // stages of the sweeps without the blur
+constexpr int kStaticSmem = 48 * 1024;  // more needs the opt-in attribute
+constexpr int kMaxBlockSmem = 232448;   // 227 KB, a block's most on sm_90
+constexpr int kHeader = 128;  // params, warp sums and the band's partial sum
+
+__host__ __device__ constexpr long long up16(long long b) { return (b + 15) / 16 * 16; }
+
+// shared memory of one block, all dynamic, as kernels/augment.py:
+// photometric_smem: a header, the ring of chunk + 4 fp32 rows, two input
+// stages of chunk + 4 rows, the output tile of chunk rows (each stage and
+// the tile with 16 bytes for a misaligned head)
+__host__ __device__ constexpr long long ring_bytes(int w, int chunk) {
+  return up16(4LL * (chunk + 2 * kHalo) * 3 * w);
+}
+__host__ __device__ constexpr long long stage_bytes(int w, int in_bytes, int chunk) {
+  return up16((long long)(chunk + 2 * kHalo) * 3 * w * in_bytes + 16);
+}
+__host__ __device__ constexpr long long tile_bytes(int w, int chunk) {
+  return up16(2LL * chunk * 3 * w + 16);
+}
+// a stage of the sweeps without the blur: chunk rows
+__host__ __device__ constexpr long long deep_stage_bytes(int w, int in_bytes, int chunk) {
+  return up16((long long)chunk * 3 * w * in_bytes + 16);
+}
+__host__ __device__ constexpr long long photometric_smem(int w, int in_bytes, int chunk) {
+  return kHeader + ring_bytes(w, chunk) + 2 * stage_bytes(w, in_bytes, chunk) +
+         tile_bytes(w, chunk);
+}
 
 __device__ __forceinline__ float to_float(uint8_t v) { return (float)v; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
+__device__ __forceinline__ float to_float(bf16 v) { return __bfloat162float(v); }
 
 __device__ __forceinline__ float clamp01(float x) {
   return fminf(fmaxf(x, 0.0f), 1.0f);
@@ -64,221 +119,422 @@ __device__ __forceinline__ float wrap01(float x) { return x - floorf(x); }
 
 // rgb->hsv, shift h, hsv->rgb (torchvision adjust_hue math, as in
 // tdeed_tpu/kernels/augment.py:_hue_shift)
-__device__ void hue_shift(float& r, float& g, float& b, float shift) {
-  float maxc = fmaxf(fmaxf(r, g), b);
-  float minc = fminf(fminf(r, g), b);
-  float delta = maxc - minc;
-  float safe = delta > 0.0f ? delta : 1.0f;
-  float rc = (maxc - r) / safe;
-  float gc = (maxc - g) / safe;
-  float bc = (maxc - b) / safe;
-  float h = maxc == r ? bc - gc
-                      : (maxc == g ? 2.0f + rc - bc : 4.0f + gc - rc);
+__device__ __forceinline__ void hue_shift(float& r, float& g, float& b, float shift) {
+  const float maxc = fmaxf(fmaxf(r, g), b);
+  const float minc = fminf(fminf(r, g), b);
+  const float delta = maxc - minc;
+  const float inv = __frcp_rn(delta > 0.0f ? delta : 1.0f);
+  const float rc = (maxc - r) * inv;
+  const float gc = (maxc - g) * inv;
+  const float bc = (maxc - b) * inv;
+  float h = maxc == r ? bc - gc : (maxc == g ? 2.0f + rc - bc : 4.0f + gc - rc);
   h = delta > 0.0f ? h : 0.0f;
-  h = wrap01(h / 6.0f);
-  float s = maxc > 0.0f ? delta / maxc : 0.0f;
-  float v = maxc;
+  h = wrap01(h * (1.0f / 6.0f));
+  const float s = maxc > 0.0f ? delta * __frcp_rn(maxc) : 0.0f;
+  const float v = maxc;
 
   h = wrap01(h + shift);
-  float h6 = h * 6.0f;
-  float i = floorf(h6);
-  float f = h6 - i;
-  float pp = v * (1.0f - s);
-  float q = v * (1.0f - s * f);
-  float t = v * (1.0f - s * (1.0f - f));
-  int i6 = ((int)i) % 6;  // h6 can round up to 6.0
-  switch (i6) {
-    case 0: r = v; g = t; b = pp; break;
-    case 1: r = q; g = v; b = pp; break;
-    case 2: r = pp; g = v; b = t; break;
-    case 3: r = pp; g = q; b = v; break;
-    case 4: r = t; g = pp; b = v; break;
-    default: r = v; g = pp; b = q; break;
-  }
+  const float h6 = h * 6.0f;
+  const float i = floorf(h6);
+  const float f = h6 - i;
+  const float pp = v * (1.0f - s);
+  const float q = v * (1.0f - s * f);
+  const float t = v * (1.0f - s * (1.0f - f));
+  // the sector's (r, g, b): 0 (v, t, pp), 1 (q, v, pp), 2 (pp, v, t),
+  // 3 (pp, q, v), 4 (t, pp, v), 5 (v, pp, q); selects, not a switch, so
+  // that a warp's lanes in different sectors do not diverge
+  const int i6 = ((int)i) % 6;  // h6 can round up to 6.0
+  r = (i6 == 0 || i6 == 5) ? v : (i6 == 1 ? q : (i6 == 4 ? t : pp));
+  g = (i6 == 1 || i6 == 2) ? v : (i6 == 0 ? t : (i6 == 3 ? q : pp));
+  b = (i6 == 3 || i6 == 4) ? v : (i6 == 2 ? t : (i6 == 5 ? q : pp));
 }
 
 __device__ __forceinline__ float gray(float r, float g, float b) {
   return 0.299f * r + 0.587f * g + 0.114f * b;
 }
 
+// a clip's gates and factors, held in registers; a stage whose gate is off
+// is skipped, which gives the same bits as the reference's factor of 1
+struct Gates {
+  bool hue, sat, bri, con;
+  float shift, sat_f, bri_f, con_f, mean;
+};
+
 // /255, hue, saturation, brightness: everything before the contrast mean
 template <typename T>
-__device__ __forceinline__ void pointwise(const T* px, const float* p,
-                                          float& r, float& g, float& b) {
-  r = to_float(px[0]) / 255.0f;
-  g = to_float(px[1]) / 255.0f;
-  b = to_float(px[2]) / 255.0f;
-  if (p[0] > 0.5f) hue_shift(r, g, b, p[1]);
-  float sat = p[2] > 0.5f ? p[3] : 1.0f;
-  float gy = gray(r, g, b);
-  r = clamp01(sat * r + (1.0f - sat) * gy);
-  g = clamp01(sat * g + (1.0f - sat) * gy);
-  b = clamp01(sat * b + (1.0f - sat) * gy);
-  float bri = p[4] > 0.5f ? p[5] : 1.0f;
-  r = clamp01(r * bri);
-  g = clamp01(g * bri);
-  b = clamp01(b * bri);
+__device__ __forceinline__ void pointwise(const T* px, const Gates& q, float& r,
+                                          float& g, float& b) {
+  constexpr float k = 1.0f / 255.0f;
+  r = to_float(px[0]) * k;
+  g = to_float(px[1]) * k;
+  b = to_float(px[2]) * k;
+  if (q.hue) hue_shift(r, g, b, q.shift);
+  if (q.sat) {
+    const float gy = gray(r, g, b);
+    r = clamp01(q.sat_f * r + (1.0f - q.sat_f) * gy);
+    g = clamp01(q.sat_f * g + (1.0f - q.sat_f) * gy);
+    b = clamp01(q.sat_f * b + (1.0f - q.sat_f) * gy);
+  }
+  if (q.bri) {
+    r = clamp01(r * q.bri_f);
+    g = clamp01(g * q.bri_f);
+    b = clamp01(b * q.bri_f);
+  }
 }
 
-// pointwise chain + contrast at logical (flipped) pixel (y, x)
+// the chain up to the blur: pointwise, then contrast toward the mean
 template <typename T>
-__device__ __forceinline__ void chain(const T* frame, const float* p, int w,
-                                      bool flip, float con, float mean, int y,
-                                      int x, float& r, float& g, float& b) {
-  int sx = flip ? w - 1 - x : x;
-  pointwise(frame + ((size_t)y * w + sx) * 3, p, r, g, b);
-  r = clamp01(con * r + (1.0f - con) * mean);
-  g = clamp01(con * g + (1.0f - con) * mean);
-  b = clamp01(con * b + (1.0f - con) * mean);
+__device__ __forceinline__ void chain(const T* px, const Gates& q, float (&c)[3]) {
+  pointwise(px, q, c[0], c[1], c[2]);
+  if (q.con) {
+#pragma unroll
+    for (int k = 0; k < 3; ++k) c[k] = clamp01(q.con_f * c[k] + (1.0f - q.con_f) * q.mean);
+  }
+}
+
+__device__ __forceinline__ bf16 standardize(float v, int c) {
+  const float m = c == 0 ? 0.485f : (c == 1 ? 0.456f : 0.406f);
+  const float inv_s = c == 0 ? 1.0f / 0.229f : (c == 1 ? 1.0f / 0.224f : 1.0f / 0.225f);
+  return __float2bfloat16_rn((v - m) * inv_s);
 }
 
 // width-2 reflect padding: [x2, x1 | x0 ... x_{n-1} | x_{n-2}, x_{n-3}];
-// the clamp only guards halo cells no valid output reads
+// the clamp only guards slots no valid output reads
 __device__ __forceinline__ int reflect(int i, int n) {
   if (i < 0) i = -i;
   if (i >= n) i = 2 * (n - 1) - i;
   return min(max(i, 0), n - 1);
 }
 
-__device__ __forceinline__ void store(__nv_bfloat16* o, float r, float g,
-                                      float b) {
-  o[0] = __float2bfloat16_rn((r - 0.485f) / 0.229f);
-  o[1] = __float2bfloat16_rn((g - 0.456f) / 0.224f);
-  o[2] = __float2bfloat16_rn((b - 0.406f) / 0.225f);
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" :: "r"(dst), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// wait until at most PENDING of this thread's copy groups are in flight
+template <int PENDING>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(PENDING) : "memory");
+}
+
+// the element offset that gives a buffer of T the alignment of p mod 16
+template <typename T>
+__device__ __forceinline__ int pad_of(const void* p) {
+  return (int)(((uintptr_t)p & 15) / sizeof(T));
+}
+
+// src[0, n) -> buf[pad_of(src) + i]: 16-byte cp.async for the aligned
+// middle, element copies for the head and the tail
+template <typename T>
+__device__ void stage(const T* src, int n, T* buf) {
+  constexpr int V = 16 / sizeof(T);
+  const int pad = pad_of<T>(src);
+  const int head = pad ? min(V - pad, n) : 0;
+  const int nvec = (n - head) / V;
+  T* dst = buf + pad;
+  for (int i = threadIdx.x; i < head; i += kThreads) dst[i] = src[i];
+  for (int i = threadIdx.x; i < nvec; i += kThreads)
+    cp_async16(smem_u32(dst + head + i * V), src + head + i * V);
+  for (int i = head + nvec * V + threadIdx.x; i < n; i += kThreads) dst[i] = src[i];
+}
+
+// tile[pad_of(dst) + i] -> dst[0, n), 16-byte stores for the aligned middle
+__device__ void store(const bf16* tile, bf16* dst, int n) {
+  const int pad = pad_of<bf16>(dst);
+  const int head = pad ? min(8 - pad, n) : 0;
+  const int nvec = (n - head) / 8;
+  const bf16* src = tile + pad;
+  for (int i = threadIdx.x; i < head; i += kThreads) dst[i] = src[i];
+  for (int i = threadIdx.x; i < nvec; i += kThreads)
+    *reinterpret_cast<uint4*>(dst + head + i * 8) =
+        *reinterpret_cast<const uint4*>(src + head + i * 8);
+  for (int i = head + nvec * 8 + threadIdx.x; i < n; i += kThreads) dst[i] = src[i];
+}
+
+// Chunks k = 0..nk-1: rows(k, a, b) names the frame rows [a, b) chunk k
+// stages; work(k, in, a, b) runs once they have landed, `in` pointing at
+// row a in shared memory, and ends with a barrier after its last read of
+// the stage (chunk k + S's copy overwrites it). S stages: the copies of
+// chunks k + 1 .. k + S - 1 are in flight during work(k).
+template <int S, typename T, typename Rows, typename Work>
+__device__ void sweep(const T* frame, int we, T* stages, int stage_elems, int nk,
+                      Rows rows, Work work) {
+  auto issue = [&](int k) {
+    int a, b;
+    rows(k, a, b);
+    stage(frame + (long long)a * we, (b - a) * we, stages + (k % S) * stage_elems);
+  };
+  for (int k = 0; k < S - 1; ++k) {
+    if (k < nk) issue(k);
+    cp_async_commit();  // empty groups keep the count regular
+  }
+  for (int k = 0; k < nk; ++k) {
+    if (k + S - 1 < nk) issue(k + S - 1);
+    cp_async_commit();
+    cp_async_wait<S - 1>();  // chunk k's group has landed
+    __syncthreads();
+    int a, b;
+    rows(k, a, b);
+    const T* src = frame + (long long)a * we;
+    work(k, stages + (k % S) * stage_elems + pad_of<T>(src), a, b);
+  }
 }
 
 template <typename T>
-__global__ void __launch_bounds__(kPass1Threads)
-    frame_means(const T* __restrict__ x, const float* __restrict__ params,
-                float* __restrict__ means, int t_len, int hw) {
-  const int frame = blockIdx.x;
-  const float* p = params + (size_t)(frame / t_len) * kNumParams;
-  if (!(p[6] > 0.5f)) return;  // contrast off: the mean is never read
-  const T* src = x + (size_t)frame * hw * 3;
-  float acc = 0.0f;
-  for (int i = threadIdx.x; i < hw; i += kPass1Threads) {
-    float r, g, b;
-    pointwise(src + (size_t)i * 3, p, r, g, b);
-    acc += gray(r, g, b);
-  }
-  for (int o = 16; o > 0; o >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, o);
-  __shared__ float warp_sums[kPass1Threads / 32];
-  if ((threadIdx.x & 31) == 0) warp_sums[threadIdx.x >> 5] = acc;
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+    photometric_kernel(const T* __restrict__ x, const float* __restrict__ params,
+                       bf16* __restrict__ out, int t_len, int h, int w, int rows,
+                       int chunk) {
+  cg::cluster_group cluster = cg::this_cluster();
+  const int cs = (int)cluster.num_blocks();
+  const int band = (int)cluster.block_rank();
+  const long long frame = blockIdx.x / cs;
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* p = reinterpret_cast<float*>(smem);  // kNumParams
+  float* warp_sums = p + kNumParams;          // kWarps
+  float& partial = warp_sums[kWarps];
+  const int we = 3 * w;
+  const int K = chunk + 2 * kHalo;  // ring rows
+  float* ring = reinterpret_cast<float*>(smem + kHeader);
+  T* stages = reinterpret_cast<T*>(smem + kHeader + ring_bytes(w, chunk));
+  const int stage_elems = (int)(stage_bytes(w, sizeof(T), chunk) / sizeof(T));
+  bf16* tile = reinterpret_cast<bf16*>(reinterpret_cast<unsigned char*>(stages) +
+                                       2 * stage_bytes(w, sizeof(T), chunk));
+  // sweeps without the blur take the ring's and the stages' room for
+  // kDeep stages of chunk rows (photometric_smem's layout leaves
+  // room for them at any width and chunk)
+  T* deep = reinterpret_cast<T*>(smem + kHeader);
+  const int deep_elems = (int)(deep_stage_bytes(w, sizeof(T), chunk) / sizeof(T));
+
+  const int tid = threadIdx.x;
+  if (tid < kNumParams) p[tid] = params[(frame / t_len) * kNumParams + tid];
   __syncthreads();
-  if (threadIdx.x == 0) {
-    float s = 0.0f;
-    for (int k = 0; k < kPass1Threads / 32; ++k) s += warp_sums[k];
-    means[frame] = s / (float)hw;
-  }
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    photometric_out(const T* __restrict__ x, const float* __restrict__ params,
-                    const float* __restrict__ means,
-                    __nv_bfloat16* __restrict__ out, int t_len, int h, int w) {
-  constexpr int SW = kTileW + 2 * kHalo;
-  constexpr int SH = kTileH + 2 * kHalo;
-  __shared__ float p[kNumParams];
-  __shared__ float tile[3][SH][SW];
-  __shared__ float vert[3][kTileH][SW];
-
-  const int frame = blockIdx.z;
-  const int tid = threadIdx.y * kTileW + threadIdx.x;
-  if (tid < kNumParams) p[tid] = params[(size_t)(frame / t_len) * kNumParams + tid];
-  __syncthreads();
-
-  const T* src = x + (size_t)frame * h * w * 3;
-  __nv_bfloat16* dst = out + (size_t)frame * h * w * 3;
+  const T* src = x + frame * h * we;
+  bf16* dst = out + frame * h * we;
   const bool flip = p[14] > 0.5f;
-  const bool con_on = p[6] > 0.5f;
-  const float con = con_on ? p[7] : 1.0f;
-  const float mean = con_on ? means[frame] : 0.0f;
-  const int ox = blockIdx.x * kTileW + threadIdx.x;
-  const int oy = blockIdx.y * kTileH + threadIdx.y;
+  Gates q{p[0] > 0.5f, p[2] > 0.5f, p[4] > 0.5f, p[6] > 0.5f,
+          p[1], p[3], p[5], p[7], 0.0f};
+  const int r0 = band * rows, r1 = min(h, r0 + rows);
+  const int nk = (r1 - r0 + chunk - 1) / chunk;
+  auto own_rows = [&](int k, int& a, int& b) {
+    a = r0 + k * chunk;
+    b = min(r1, a + chunk);
+  };
+  // this thread's pixels of a chunk, i = tid + kThreads * n, as (row, column)
+  const int dy = kThreads / w, dx = kThreads % w;
+  auto each_pixel = [&](int npx, auto fn) {
+    int y = tid / w, xo = tid % w;
+    for (int i = tid; i < npx; i += kThreads) {
+      fn(i, y, xo);
+      xo += dx;
+      y += dy;
+      if (xo >= w) xo -= w, ++y;
+    }
+  };
+
+  if (q.con) {  // the frame's gray mean after hue, saturation, brightness
+    float acc = 0.0f;
+    sweep<kDeep>(src, we, deep, deep_elems, nk, own_rows, [&](int, const T* in, int a, int end) {
+      const int npx = (end - a) * w;
+      for (int i = tid; i < npx; i += kThreads) {
+        float r, g, b;
+        pointwise(in + 3 * i, q, r, g, b);
+        acc += gray(r, g, b);
+      }
+      __syncthreads();
+    });
+    for (int o = 16; o > 0; o >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, o);
+    if ((tid & 31) == 0) warp_sums[tid >> 5] = acc;
+    __syncthreads();
+    if (tid == 0) {
+      float s = 0.0f;
+      for (int k = 0; k < kWarps; ++k) s += warp_sums[k];
+      partial = s;
+    }
+    cluster.sync();
+    float s = 0.0f;
+    for (int k = 0; k < cs; ++k) s += *cluster.map_shared_rank(&partial, k);
+    q.mean = s / (float)(h * w);
+    cluster.sync();  // no CTA leaves while another reads its partial
+  }
 
   if (!(p[8] > 0.5f)) {  // no blur: one pixel per thread
-    if (ox < w && oy < h) {
-      float r, g, b;
-      chain(src, p, w, flip, con, mean, oy, ox, r, g, b);
-      store(dst + ((size_t)oy * w + ox) * 3, r, g, b);
-    }
+    sweep<kDeep>(src, we, deep, deep_elems, nk, own_rows, [&](int, const T* in, int a, int end) {
+      const int nrow = end - a;
+      bf16* o = dst + (long long)a * we;
+      bf16* ot = tile + pad_of<bf16>(o);
+      each_pixel(nrow * w, [&](int i, int y, int xo) {
+        float c[3];
+        chain(in + (y * w + (flip ? w - 1 - xo : xo)) * 3, q, c);
+#pragma unroll
+        for (int ch = 0; ch < 3; ++ch) ot[3 * i + ch] = standardize(c[ch], ch);
+      });
+      __syncthreads();
+      store(tile, o, nrow * we);
+    });
     return;
   }
 
-  // blur: tile + reflected halo of post-contrast values
-  const int x0 = blockIdx.x * kTileW - kHalo;
-  const int y0 = blockIdx.y * kTileH - kHalo;
-  for (int i = tid; i < SH * SW; i += kThreads) {
-    int ty = i / SW, tx = i % SW;
-    float r, g, b;
-    chain(src, p, w, flip, con, mean, reflect(y0 + ty, h),
-          reflect(x0 + tx, w), r, g, b);
-    tile[0][ty][tx] = r;
-    tile[1][ty][tx] = g;
-    tile[2][ty][tx] = b;
-  }
-  __syncthreads();
+  // blur, horizontal pass first: warp g of a pass over the columns takes
+  // columns [c0 + 28 g - 2, c0 + 28 g + 30), one a lane, the 2 at each end
+  // only to give their neighbours the reflected 5-tap window; a lane
+  // computes the chain of its column down the chunk's new rows, takes the
+  // horizontal sum from its neighbours' lanes, and keeps it in the ring
+  // (row y in slot y % K). The vertical pass then walks the lane's own
+  // column of the ring (its own writes: no barrier), its 5-row window in
+  // registers.
   const float k0 = p[9], k1 = p[10], k2 = p[11], k3 = p[12], k4 = p[13];
-  for (int i = tid; i < kTileH * SW; i += kThreads) {  // along H
-    int ty = i / SW, tx = i % SW;
-    for (int c = 0; c < 3; ++c) {
-      float v = k0 * tile[c][ty][tx];
-      v = v + k1 * tile[c][ty + 1][tx];
-      v = v + k2 * tile[c][ty + 2][tx];
-      v = v + k3 * tile[c][ty + 3][tx];
-      v = v + k4 * tile[c][ty + 4][tx];
-      vert[c][ty][tx] = v;
+  auto new_rows = [&](int k, int& a, int& b) {
+    const int y = r0 + k * chunk;
+    a = k == 0 ? max(0, y - kHalo) : min(h, y + kHalo);
+    b = min(h, min(r1, y + chunk) + kHalo);
+  };
+  const int lane = tid & 31;
+  const int lane_col = (tid >> 5) * kOwned + lane - kHalo;  // in a pass
+  const bool inner = lane >= kHalo && lane < 32 - kHalo;
+  sweep<2>(src, we, stages, stage_elems, nk, new_rows, [&](int k, const T* in, int a, int end) {
+    const int y0 = r0 + k * chunk;
+    const int nrow = min(r1, y0 + chunk) - y0;
+    bf16* o = dst + (long long)y0 * we;
+    bf16* ot = tile + pad_of<bf16>(o);
+    // ring row of frame row y in [y0 - 2, y0 + nrow + 2), reflected: y % K
+    // from y0 % K without a division per row
+    const int y0_slot = y0 % K;
+    auto row = [&](int y) {
+      int s = y0_slot + reflect(y, h) - y0;
+      s += s < 0 ? K : 0;
+      s -= s >= K ? K : 0;
+      return ring + s * we;
+    };
+    for (int c0 = 0; c0 < w; c0 += kWarps * kOwned) {
+      const int col = c0 + lane_col;
+      const bool owned = inner && col < w;
+      const int pc = reflect(col, w);
+      const T* px = in + (flip ? w - 1 - pc : pc) * 3;
+      int slot = a % K;
+      for (int y = a; y < end; ++y, px += we) {
+        float c[3];
+        chain(px, q, c);
+#pragma unroll
+        for (int ch = 0; ch < 3; ++ch) {
+          const float l2 = __shfl_up_sync(0xffffffffu, c[ch], 2);
+          const float l1 = __shfl_up_sync(0xffffffffu, c[ch], 1);
+          const float u1 = __shfl_down_sync(0xffffffffu, c[ch], 1);
+          const float u2 = __shfl_down_sync(0xffffffffu, c[ch], 2);
+          float s = k0 * l2;
+          s = s + k1 * l1;
+          s = s + k2 * c[ch];
+          s = s + k3 * u1;
+          s = s + k4 * u2;
+          if (owned) ring[slot * we + 3 * col + ch] = s;
+        }
+        slot = slot + 1 == K ? 0 : slot + 1;
+      }
+      if (!owned) continue;
+      float win[4][3];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int ch = 0; ch < 3; ++ch) win[i][ch] = row(y0 + i - kHalo)[3 * col + ch];
+#pragma unroll
+      for (int r = 0; r < kMaxChunk; ++r) {
+        if (r == nrow) break;
+        const float* next = row(y0 + r + kHalo) + 3 * col;
+#pragma unroll
+        for (int ch = 0; ch < 3; ++ch) {
+          const float w4 = next[ch];
+          float s = k0 * win[0][ch];
+          s = s + k1 * win[1][ch];
+          s = s + k2 * win[2][ch];
+          s = s + k3 * win[3][ch];
+          s = s + k4 * w4;
+          ot[r * we + 3 * col + ch] = standardize(s, ch);
+          win[0][ch] = win[1][ch], win[1][ch] = win[2][ch], win[2][ch] = win[3][ch];
+          win[3][ch] = w4;
+        }
+      }
     }
-  }
-  __syncthreads();
-  if (ox < w && oy < h) {  // along W
-    float rgb[3];
-    const int ty = threadIdx.y, tx = threadIdx.x;
-    for (int c = 0; c < 3; ++c) {
-      float v = k0 * vert[c][ty][tx];
-      v = v + k1 * vert[c][ty][tx + 1];
-      v = v + k2 * vert[c][ty][tx + 2];
-      v = v + k3 * vert[c][ty][tx + 3];
-      v = v + k4 * vert[c][ty][tx + 4];
-      rgb[c] = v;
-    }
-    store(dst + ((size_t)oy * w + ox) * 3, rgb[0], rgb[1], rgb[2]);
-  }
+    __syncthreads();
+    store(tile, o, nrow * we);
+  });
+}
+
+// lets photometric_kernel<T> take a block's most shared memory on the
+// current device; the attribute is set once per device
+template <typename T>
+cudaError_t allow_smem() {
+  static std::atomic<uint64_t> done{0};  // one bit per device
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const uint64_t bit = 1ULL << (dev & 63);
+  if (done.load() & bit) return cudaSuccess;
+  err = cudaFuncSetAttribute(photometric_kernel<T>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxBlockSmem);
+  if (err == cudaSuccess) done.fetch_or(bit);
+  return err;
 }
 
 template <typename T>
-int launch(const void* frames, const float* params, float* means, void* out,
-           int batch, int t_len, int h, int w, cudaStream_t stream) {
-  const T* x = static_cast<const T*>(frames);
-  __nv_bfloat16* o = static_cast<__nv_bfloat16*>(out);
-  const int n_frames = batch * t_len;
-  frame_means<T><<<n_frames, kPass1Threads, 0, stream>>>(x, params, means,
-                                                         t_len, h * w);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((w + kTileW - 1) / kTileW, (h + kTileH - 1) / kTileH, n_frames);
-  dim3 block(kTileW, kTileH);
-  photometric_out<T><<<grid, block, 0, stream>>>(x, params, means, o, t_len,
-                                                  h, w);
-  return (int)cudaGetLastError();
+int launch(const void* frames, const float* params, void* out, int n_frames,
+           int t_len, int h, int w, int cluster, int rows, int chunk,
+           int smem_bytes, cudaStream_t stream) {
+  if (smem_bytes > kStaticSmem) {
+    const cudaError_t err = allow_smem<T>();
+    if (err != cudaSuccess) return (int)err;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)(n_frames * cluster));
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = (size_t)smem_bytes;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  // the launch's own error: the runtime's last error may be an earlier call's
+  return (int)cudaLaunchKernelEx(&cfg, photometric_kernel<T>, static_cast<const T*>(frames),
+                                 params, static_cast<bf16*>(out), t_len, h, w, rows, chunk);
 }
 
 }  // namespace
 
 // frames: (B, T, H, W, 3) uint8 (in_kind 0) or bf16 (in_kind 1), values
-// 0..255; params: (B, 16) fp32; means: (B*T,) fp32 scratch; out: (B, T, H,
-// W, 3) bf16. All contiguous on the current device. Returns the CUDA error
-// code of the launches (0 on success).
-extern "C" int tdeed_photometric(const void* frames, int in_kind,
-                                 const float* params, float* means, void* out,
-                                 int batch, int t_len, int h, int w,
+// 0..255; params: (B, 16) fp32; out: (B, T, H, W, 3) bf16; all contiguous
+// on the current device, H, W >= 3. The launch plan
+// (kernels/augment.py:photometric_plan): 1 <= cluster <= 8 CTAs per frame,
+// each a band of `rows` rows, every band non-empty and together exactly H
+// rows; 1 <= chunk <= min(8, rows); smem_bytes at least what the layout
+// takes, at most 227 KB. Returns the CUDA error code of the launch (0 on
+// success); a plan that does not match is refused with
+// cudaErrorInvalidValue and nothing runs.
+extern "C" int tdeed_photometric(const void* frames, int in_kind, const float* params,
+                                 void* out, int batch, int t_len, int h, int w,
+                                 int cluster, int rows, int chunk, int smem_bytes,
                                  void* stream) {
+  if ((in_kind != 0 && in_kind != 1) || batch < 1 || t_len < 1 || h < 3 || w < 3 ||
+      cluster < 1 || cluster > kMaxCluster || rows < 1 ||
+      (long long)(cluster - 1) * rows >= h || (long long)cluster * rows < h ||
+      chunk < 1 || chunk > kMaxChunk || chunk > rows ||
+      smem_bytes < photometric_smem(w, in_kind == 0 ? 1 : 2, chunk) ||
+      smem_bytes > kMaxBlockSmem || (long long)batch * t_len * cluster > INT_MAX ||
+      (long long)h * 3 * w > INT_MAX / 2)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int n_frames = batch * t_len;
   if (in_kind == 0)
-    return launch<uint8_t>(frames, params, means, out, batch, t_len, h, w, s);
-  if (in_kind == 1)
-    return launch<__nv_bfloat16>(frames, params, means, out, batch, t_len, h,
-                                 w, s);
-  return (int)cudaErrorInvalidValue;
+    return launch<uint8_t>(frames, params, out, n_frames, t_len, h, w, cluster, rows,
+                           chunk, smem_bytes, s);
+  return launch<bf16>(frames, params, out, n_frames, t_len, h, w, cluster, rows, chunk,
+                      smem_bytes, s);
 }

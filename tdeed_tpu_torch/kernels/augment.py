@@ -11,6 +11,8 @@ cast chain are gone.
 ``photometric`` launches the CUDA kernel (csrc/photometric.cu) for a CUDA
 tensor and runs ``photometric_reference``, the same chain in eager fp32
 PyTorch, for a CPU tensor. There is no fallback from one to the other.
+The kernel's launch plan is ``photometric_plan``, a pure function the CPU
+tests check.
 
 Per-clip parameters, (B, 16) fp32 (the JAX package's layout, :38-46):
    0: hue gate        1: hue shift
@@ -26,12 +28,23 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from dataclasses import dataclass
 
 import torch
 import torch.nn.functional as F
 
 N_PARAMS = 16
-MAX_FRAMES = 65535  # CUDA grid z limit of the output pass
+MAX_FRAMES = 65535  # B * T a call takes
+
+# csrc/photometric.cu's launch constants
+MAX_CLUSTER = 8  # CTAs of a frame's cluster: the portable most
+MAX_CHUNK = 8  # rows a CTA computes between two barriers
+HALO = 2  # rows above and below a chunk the 5-tap blur reads
+SMEM_HEADER = 128  # params, warp sums and a band's partial sum
+BAND_ROWS = 56  # rows of a band the plan aims at: 4 bands at 224 rows
+BLOCK_SHARED_MAX = 232_448  # 227 KB: the most one block may use on sm_90
+BLOCKS_PER_SM = (3, 2, 1)  # the plan takes the largest chunk that fits the most blocks
+_IN_BYTES = {torch.uint8: 1, torch.bfloat16: 2}
 
 _MEAN = (0.485, 0.456, 0.406)
 _STD = (0.229, 0.224, 0.225)
@@ -183,17 +196,70 @@ def _check(frames: torch.Tensor, params: torch.Tensor) -> None:
         raise ValueError(f"B*T = {bsz * t} frames exceeds {MAX_FRAMES}")
 
 
+def _up16(n: int) -> int:
+    return -(-n // 16) * 16
+
+
+def photometric_smem(w: int, in_bytes: int, chunk: int) -> int:
+    """Dynamic shared memory of one block (csrc/photometric.cu:
+    photometric_smem, which refuses a smaller figure): a header, a ring of
+    chunk + 4 fp32 rows for the blur, two input stages of chunk + 4 rows
+    and an output tile of chunk bf16 rows, the stages and the tile with 16
+    bytes for a misaligned head."""
+    we = 3 * w
+    rows = chunk + 2 * HALO
+    return (SMEM_HEADER + _up16(4 * rows * we) + 2 * _up16(rows * we * in_bytes + 16)
+            + _up16(2 * chunk * we + 16))
+
+
+@dataclass(frozen=True)
+class PhotometricPlan:
+    """How the photometric kernel covers an (H, W) frame: a cluster of
+    ``cluster`` CTAs per frame, CTA r taking the band of rows
+    [r * rows, min(H, (r + 1) * rows)) in chunks of ``chunk`` rows."""
+
+    h: int
+    w: int
+    cluster: int
+    rows: int
+    chunk: int
+    smem_bytes: int
+
+
+def photometric_plan(h: int, w: int, in_dtype: torch.dtype) -> PhotometricPlan:
+    """The photometric kernel's launch for (H, W) frames of ``in_dtype``:
+    bands of at most BAND_ROWS rows, cut evenly, at most MAX_CLUSTER of
+    them (longer bands beyond 448 rows), none empty; then the largest
+    chunk (at most MAX_CHUNK rows, at most the band) whose shared memory
+    lets the most blocks share an SM. Raises ValueError when not even a
+    one-row chunk fits a block's 227 KB (frames some 1,690 pixels wide in
+    bf16, 2,150 in uint8). The grid is one cluster per frame, so the plan
+    does not depend on the card's SM count."""
+    if h < 3 or w < 3:
+        raise ValueError(f"frames must be at least 3x3 for the blur, got {h}x{w}")
+    in_bytes = _IN_BYTES[in_dtype]
+    cluster = min(MAX_CLUSTER, -(-h // BAND_ROWS))
+    rows = -(-h // cluster)
+    cluster = -(-h // rows)  # no empty band
+    chunks = range(min(MAX_CHUNK, rows), 0, -1)
+    for blocks in BLOCKS_PER_SM:
+        budget = BLOCK_SHARED_MAX // blocks - (1024 if blocks > 1 else 0)
+        chunk = next((c for c in chunks if photometric_smem(w, in_bytes, c) <= budget), 0)
+        if chunk:
+            return PhotometricPlan(h, w, cluster, rows, chunk,
+                                   photometric_smem(w, in_bytes, chunk))
+    raise ValueError(f"frames {w} pixels wide do not fit the photometric kernel's "
+                     f"shared memory ({BLOCK_SHARED_MAX} bytes a block)")
+
+
 @functools.lru_cache(maxsize=None)
 def _kernel():
     from tdeed_tpu_torch.kernels.build import load
 
     built = load("photometric")
     fn = built.lib.tdeed_photometric
-    fn.argtypes = [
-        ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_void_p,
-    ]
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [ptr, i32, ptr, ptr, i32, i32, i32, i32, i32, i32, i32, i32, ptr]
     fn.restype = ctypes.c_int
     return fn
 
@@ -202,24 +268,26 @@ def photometric(frames: torch.Tensor, params: torch.Tensor) -> torch.Tensor:
     """Fused photometric augmentation, (B, T, H, W, 3) uint8 or bf16 0..255
     -> standardized (B, T, H, W, 3) bf16.
 
-    A CUDA tensor launches the kernel on the current stream (it raises on
-    any launch error); a CPU tensor runs ``photometric_reference``.
-    ``photometric.launches`` counts kernel launches."""
+    A CUDA tensor launches the kernel on the current stream, one launch
+    laid out by ``photometric_plan``, allocating nothing but its output
+    (it raises on any launch error; two calls give the same bits); a CPU
+    tensor runs ``photometric_reference``. ``photometric.launches`` counts
+    kernel launches."""
     if frames.device.type == "cpu":
         return photometric_reference(frames, params)
     if frames.device.type != "cuda":
         raise ValueError(f"photometric runs on cuda or cpu, not {frames.device}")
     _check(frames, params)
     bsz, t, h, w, _ = frames.shape
+    plan = photometric_plan(h, w, frames.dtype)
     fn = _kernel()
     out = torch.empty(frames.shape, dtype=torch.bfloat16, device=frames.device)
-    means = torch.empty(bsz * t, dtype=torch.float32, device=frames.device)
     with torch.cuda.device(frames.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(
             frames.data_ptr(), 0 if frames.dtype == torch.uint8 else 1,
-            params.data_ptr(), means.data_ptr(), out.data_ptr(),
-            bsz, t, h, w, stream,
+            params.data_ptr(), out.data_ptr(), bsz, t, h, w,
+            plan.cluster, plan.rows, plan.chunk, plan.smem_bytes, stream,
         )
     if err != 0:
         raise RuntimeError(f"photometric kernel launch failed: CUDA error {err}")

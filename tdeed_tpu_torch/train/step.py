@@ -33,6 +33,7 @@ from tdeed_tpu_torch.train.losses import (
     weighted_ce_hard,
     weighted_ce_soft,
 )
+from tdeed_tpu_torch.utils.profiling import annotate
 
 
 @dataclass
@@ -109,11 +110,12 @@ class TrainStep:
             frames2 = augment.random_crop_batch(
                 _on(batch["frame2"], dev), self.crop_dim, draws.crop
             )
-            frames, soft, label_d = augment.mixup_batch(
-                frames, label, frames2, _on(batch["label2"], dev),
-                draws.lam.to(dev), self.num_classes_bg,
-                label_d, _on(batch.get("labelD2"), dev),
-            )
+            with annotate("mixup"):
+                frames, soft, label_d = augment.mixup_batch(
+                    frames, label, frames2, _on(batch["label2"], dev),
+                    draws.lam.to(dev), self.num_classes_bg,
+                    label_d, _on(batch.get("labelD2"), dev),
+                )
         x = train_preprocess(frames, draws.aug.to(dev, non_blocking=True))
         keep = {k: v.to(dev, non_blocking=True) for k, v in draws.dropout_keep.items()}
         out = model(x, dropout_keep=keep)

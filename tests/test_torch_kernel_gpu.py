@@ -22,9 +22,10 @@ float64 sum.
 import pytest
 import torch
 
-from tdeed_tpu_torch.kernels import probe
+from tdeed_tpu_torch.kernels import augment, probe
 from tdeed_tpu_torch.kernels.augment import (
     photometric,
+    photometric_plan,
     photometric_reference,
     sample_params,
     train_preprocess,
@@ -68,7 +69,14 @@ def _assert_within_bf16_ulp(got, want):
     )
 
 
-@pytest.mark.parametrize("hw", [(224, 224), (448, 796), (3, 3), (37, 61)])
+# bands that end unevenly ((57, 224): 29 + 28 rows; (256, 256): 4 x 52 + 48),
+# rows that are not 16-byte multiples (W = 796, 61, 11, 3), one-row chunks
+# (bf16 at W = 796)
+PHOTOMETRIC_SHAPES = [(224, 224), (448, 796), (3, 3), (37, 61), (57, 224), (224, 796),
+                      (5, 11), (256, 256)]
+
+
+@pytest.mark.parametrize("hw", PHOTOMETRIC_SHAPES)
 @pytest.mark.parametrize("dtype", [torch.uint8, torch.bfloat16])
 def test_kernel_matches_reference_for_every_gate_combination(cuda, hw, dtype):
     params = _all_gate_combinations(cuda)
@@ -77,6 +85,41 @@ def test_kernel_matches_reference_for_every_gate_combination(cuda, hw, dtype):
     torch.cuda.synchronize()
     assert got.dtype == torch.bfloat16 and got.shape == frames.shape
     _assert_within_bf16_ulp(got, photometric_reference(frames, params))
+
+
+@pytest.mark.parametrize("hw", [(224, 224), (57, 224), (37, 61)])
+def test_kernel_misaligned_input_and_two_calls_give_the_same_bits(cuda, hw):
+    """Frames starting 2 bytes past a 16-byte boundary take the element
+    copies at each chunk's head and tail; every call gives the same bits."""
+    params = _all_gate_combinations(cuda)
+    shape = (64, 2, *hw, 3)
+    flat = _frames((torch.Size(shape).numel() + 1,), torch.bfloat16, cuda)
+    frames = flat[1:].view(shape)
+    assert frames.data_ptr() % 16 != 0
+    got = photometric(frames, params)
+    torch.cuda.synchronize()
+    _assert_within_bf16_ulp(got, photometric_reference(frames, params))
+    assert torch.equal(got, photometric(frames, params))
+    assert torch.equal(got, photometric(frames.contiguous().clone(), params))
+
+
+@pytest.mark.parametrize("hw", [(224, 224), (448, 796), (57, 224)])
+def test_contrast_mean_crosses_the_bands(cuda, hw):
+    """Top half bright, bottom half dark: each band's partial is far from
+    the frame's mean, which only the cluster's sum gives."""
+    h, w = hw
+    assert photometric_plan(h, w, torch.uint8).cluster > 1
+    frames = _frames((4, 2, h, w, 3), torch.uint8, cuda) // 8
+    frames[:, :, : h // 2] += 200
+    params = torch.zeros(4, 16, device=cuda)
+    params[:, 6] = 1.0  # contrast on
+    params[:, 7] = torch.tensor([0.7, 0.9, 1.1, 1.2], device=cuda)
+    params[2:, 8] = 1.0  # and blur
+    params[2:, 9:14] = torch.tensor([0.1, 0.2, 0.4, 0.2, 0.1], device=cuda)
+    got = photometric(frames, params)
+    torch.cuda.synchronize()
+    _assert_within_bf16_ulp(got, photometric_reference(frames, params))
+    assert torch.equal(got, photometric(frames, params))
 
 
 def test_flip_gate_equals_flipped_input(cuda):
@@ -106,6 +149,34 @@ def test_wrapper_raises_instead_of_falling_back(cuda):
         photometric(frames, torch.zeros(1, 16))
     with pytest.raises(TypeError):
         photometric(frames.float(), torch.zeros(1, 16, device=cuda))
+    with pytest.raises(ValueError):  # wider than a block's shared memory takes
+        photometric(_frames((1, 1, 4, 2000, 3), torch.bfloat16, cuda), torch.zeros(1, 16, device=cuda))
+
+
+def test_photometric_entry_refuses_a_bad_plan(cuda):
+    h, w = 224, 224
+    frames = _frames((2, 3, h, w, 3), torch.bfloat16, cuda)
+    params = _all_gate_combinations(cuda)[::32].contiguous()  # clips 0 and 32: contrast on in 32
+    out = torch.empty_like(frames)
+    p = photometric_plan(h, w, frames.dtype)
+    good = (p.cluster, p.rows, p.chunk, p.smem_bytes)
+    fn = augment._kernel()
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def call(plan):
+        return fn(frames.data_ptr(), 1, params.data_ptr(), out.data_ptr(), 2, 3, h, w,
+                  *plan, stream)
+
+    for bad in ((9, 25, 8, p.smem_bytes),  # more than 8 CTAs in a cluster
+                (4, 55, 8, p.smem_bytes),  # 4 x 55 rows miss the frame's last 4
+                (5, 56, 8, p.smem_bytes),  # the fifth band is empty
+                (4, 56, 0, p.smem_bytes), (4, 56, 9, p.smem_bytes),  # chunk out of range
+                (*good[:3], p.smem_bytes - 16),  # less shared memory than the layout takes
+                (*good[:3], 232_448 + 16)):  # more than a block may have
+        assert call(bad) != 0, bad
+    assert call(good) == 0
+    torch.cuda.synchronize()
+    _assert_within_bf16_ulp(out, photometric_reference(frames, params))
 
 
 def _probe_x(shape, device, seed=0):

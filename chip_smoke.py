@@ -10,15 +10,17 @@ Phases, each fatal on failure:
      probe kernels (csrc/probe.cu) with nvcc, one process each, together;
   3. kernel: the photometric kernel against its plain PyTorch version on
      the card, all 64 gate combinations (hue, saturation, brightness,
-     contrast, blur, flip), uint8 and bf16 input, 224x224 and 448x796; then
-     at the flagship shape (8, 100, 224, 224, 3) bf16 against the plain
-     version and against its own second call (the same bits), and both
-     timed there; the kernel also with every gate on in every clip;
+     contrast, blur, flip), uint8 and bf16 input, 224x224, 448x796 and
+     16x2200 (bf16 there in 2 column segments); then at the flagship shape
+     (8, 100, 224, 224, 3) bf16 against the plain version and against its
+     own second call (the same bits), and both timed there; the kernel also
+     with every gate on in every clip, and at SoccerNet Ball's full frames
+     (8, 100, 448, 796, 3) bf16;
   3b. probe: the probe tool (tdeed_tpu_torch.tools.profile_probe) on the
      card at its full shape (112, 112, 24, 800), which must launch each of
      the three probe kernels; then each kernel against its plain version at
-     the tool's shapes (perpix also at (112, 56, 48, 800)), and the plain
-     versions timed;
+     the tool's shapes (perpix also at (112, 56, 48, 800)), the plain
+     versions timed, and the perpix and outerp launch plans logged;
   4. agreement: on a small input, one fp32 train step and one predict
      call on the card against the same calls on the CPU, same weights and
      random draws (the CPU path is the one held against the JAX package by
@@ -53,8 +55,9 @@ from pathlib import Path
 SEED = 0
 CONFIGS = str(Path(__file__).resolve().parent / "configs")
 BF16_ULP_AT_2 = 2.0 ** -6  # standardized outputs lie in about [-2.12, 2.64]
-COMPARE_SHAPES = ((224, 224), (448, 796))
+COMPARE_SHAPES = ((224, 224), (448, 796), (16, 2200))
 FLAGSHIP = (8, 100, 224, 224, 3)
+SNB_FULL = (8, 100, 448, 796, 3)  # SoccerNet Ball's full frames, crop_dim -1
 FRAME = 256  # request and training frames before the 224 crop
 REQUESTS = 3
 REQUEST_CLIPS = 4
@@ -198,15 +201,24 @@ def kernel_phase(torch):
     ms_all = _time_ms(torch, lambda: photometric(frames, every), 20)
     ms2 = _time_ms(torch, lambda: photometric(frames, p8), 20)
     moved = 2 * frames.numel() * 2  # bf16 in + bf16 out
-    bound_ms, bound_by = _k1_bound(p8, moved)
-    bound_all, bound_all_by = _k1_bound(every, moved)
-    plan = photometric_plan(*FLAGSHIP[2:4], frames.dtype)
-    plan = {k: getattr(plan, k) for k in ("cluster", "rows", "chunk", "smem_bytes")}
+    bound_ms, bound_by = _k1_bound(p8, moved, FLAGSHIP)
+    bound_all, bound_all_by = _k1_bound(every, moved, FLAGSHIP)
+    plan = _k1_plan(photometric_plan(*FLAGSHIP[2:4], frames.dtype))
     log(f"[kernel] flagship {FLAGSHIP} bf16, plan {plan}: kernel {ms:.3f} ms then "
         f"{ms2:.3f} ms ({moved / (min(ms, ms2) * 1e-3) / 1e9:.0f} GB/s of the 482 MB "
         f"moved), plain PyTorch {plain_ms:.3f} ms; bound {bound_ms:.4f} ms ({bound_by})")
     log(f"[kernel] flagship, every gate on in every clip: ms_all_gates {ms_all:.3f}, "
         f"bound {bound_all:.4f} ms ({bound_all_by}), {bound_all / ms_all:.0%} of it")
+    del frames
+    frames = (torch.rand(SNB_FULL, generator=gen, device=dev) * 255).to(torch.bfloat16)
+    snb_ms = _time_ms(torch, lambda: photometric(frames, p8), 20)
+    snb_moved = 2 * frames.numel() * 2
+    snb_bound, snb_bound_by = _k1_bound(p8, snb_moved, SNB_FULL)
+    snb_plan = _k1_plan(photometric_plan(*SNB_FULL[2:4], frames.dtype))
+    log(f"[kernel] SoccerNet Ball full frames {SNB_FULL} bf16, sampled params, plan "
+        f"{snb_plan}: kernel {snb_ms:.3f} ms ({snb_moved / (snb_ms * 1e-3) / 1e9:.0f} GB/s), "
+        f"bound {snb_bound:.4f} ms ({snb_bound_by}), {snb_bound / snb_ms:.0%} of it")
+    del frames
     return {
         "name": "photometric",
         "route": "cuda",
@@ -221,17 +233,26 @@ def kernel_phase(torch):
         "plan": plan,
         "ms_all_gates": ms_all,
         "bound_all_gates_ms": bound_all,
+        "snb_shape": list(SNB_FULL),
+        "snb_ms": snb_ms,
+        "snb_bound_ms": snb_bound,
+        "snb_plan": snb_plan,
     }
 
 
-def _k1_bound(params, moved):
-    """The card's least time for the flagship call: its bytes, or the fp32
+def _k1_plan(plan):
+    return {k: getattr(plan, k) for k in (
+        "bands", "rows", "segments", "seg_w", "chunk", "smem_bytes")}
+
+
+def _k1_bound(params, moved, shape):
+    """The card's least time for a call on `shape`: its bytes, or the fp32
     operations of the gates these params turn on, at the CUDA cores' peak."""
     from tdeed_tpu_torch.utils.profiling import PEAK_FP32_FLOPS, bound
 
     on = (params.cpu() > 0.5).float()
     per_clip = K1_OPS_ALWAYS + sum(ops * on[:, slot] for slot, ops in K1_OPS_GATED)
-    ops = float(per_clip.sum()) * math.prod(FLAGSHIP[1:4])
+    ops = float(per_clip.sum()) * math.prod(shape[1:4])
     return bound(moved, ops, PEAK_FP32_FLOPS)
 
 
@@ -308,9 +329,19 @@ def probe_phase(torch):
         f"float64 sum, {rel:.3g} of its largest entry")
     if not rel <= 1e-4:
         fail("the outerp kernel's sum disagrees with a float64 sum")
+    again, acc2 = probe.outerp(x)
+    same = torch.equal(acc, acc2)
+    log(f"[probe] outerp: two calls give the same bits: {same}")
+    if not same:
+        fail("two calls of the outerp kernel differ")
+    del again
     entries["outerp"] = entry("outerp", 113, acc_err, results["outerp"],
                               _time_ms(torch, lambda: probe.outerp_reference(x), 3),
                               library=False)
+    plan = probe.outerp_plan(c, n, h * w, sms)
+    entries["outerp"]["plan"] = {k: getattr(plan, k) for k in (
+        "c_pad", "bn", "tiles", "smem_bytes", "grid")}
+    log(f"[probe] outerp plan {tuple(x.shape)}: {entries['outerp']['plan']}")
     # beside it, not the same function: einsum of the fp32 sum alone
     entries["outerp"]["sum_einsum_ms"] = results["outerp"].library_ms
     entries["outerp"]["acc_rel_err"] = rel

@@ -19,8 +19,8 @@
 // the stacked (112, 56, 48, 800)): 0.012 ms on the bf16 tensor cores
 // (989 TFLOP/s), but 0.17 and 0.35 ms on the fp32 CUDA cores (67 TFLOP/s).
 // At 24 FLOP a byte (C = 48) the CUDA cores cannot keep pace with the
-// memory; the tensor cores can, many times over. outerp still runs on the
-// CUDA cores; perpix runs on the tensor cores.
+// memory; the tensor cores can, many times over. Both run on the tensor
+// cores.
 //
 // Design:
 //   stream: elementwise, 16-byte vector loads and stores when both
@@ -56,22 +56,33 @@
 //             and the same MMAs.
 //   outerp: the TPU body keeps one (C, C) accumulator resident across its
 //           sequential grid. CUDA blocks run in no set order, so the sum is
-//           two passes with no atomics, deterministic: pass 1 gives each of
-//           a fixed number of blocks (nparts, 512 or fewer) a contiguous
-//           range of pixels; the block stages each pixel's (C, N) slice in
-//           shared memory, 256 columns at a time, writes the scaled
-//           pass-through, and accumulates x x^T as 4x4 register tiles, the
-//           columns split among thread groups; it then sums the groups in a
-//           fixed order into its (C, C) partial. Pass 2 sums the partials
-//           per entry in a fixed order.
+//           two passes with no atomics, deterministic. Pass 1 is perpix's
+//           shape: the same items, plan (kernels/probe.py:outerp_plan, at
+//           N = 800 a whole pixel a tile up to C = 32), ring of kOuterStages
+//           = 3 cp.async tiles, padding rows and zero-filled columns, one
+//           block per SM.
+//           - Product: the Gram x x^T of a tile of rows c, columns n takes
+//             the tile as stored for both operands: A (c, n) row major,
+//             and B (n, d) in mma's .col layout is x's rows again. So a
+//             16-column strip is CPAD / 16 plain ldmatrix.x4 loads, and a
+//             warp runs 2 MMAs for each 16x16 block of the sum on or above
+//             the diagonal (3 blocks at CPAD 32, 10 at 64), its fp32 sums
+//             held in registers across all its items (24 at CPAD 32, 80
+//             at 64).
+//           - Pass-through: each thread takes 16 bytes of the staged tile,
+//             scales them, and stores 16 bytes of o: x is read once.
+//           - The block adds its warps' sums in warp order in shared
+//             memory and writes its (C, C) partial, mirrored below the
+//             diagonal; pass 2 (outerp_reduce) adds the grid's partials
+//             per entry in a fixed order.
 //
 // Numerics: bf16 in, fp32 products and sums, one rounding to bf16 out.
 // 1.03125 is exact in bf16 and a bf16 x bf16 product is exact in fp32, so
 // stream and the pass-through are bit-exact against x * bf16(1.03125).
-// perpix's tensor cores add the products of one k16 step in their own
-// order: it is held to 1 bf16 ulp of the fp32 einsum, and two calls give
-// the same bits. Built with FMA on (kernels/build.py): a separate multiply
-// and add would double outerp's CUDA-core instructions.
+// The tensor cores add the products of one k16 step in their own order:
+// perpix is held to 1 bf16 ulp of the fp32 einsum, outerp's sum to 1e-5
+// of its largest entry against a float64 sum, and two calls give the same
+// bits. Built with FMA on (kernels/build.py).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -91,8 +102,8 @@ constexpr int kPerpixStages = 3;  // perpix's ring of tiles
 constexpr int kStaticSmem = 48 * 1024;  // more needs the opt-in attribute
 constexpr int kMaxBlockSmem = 232448;   // 227 KB, a block's most on sm_90
 constexpr int kOuterThreads = 256;
-constexpr int kChunkPairs = 128;  // column pairs staged per outerp chunk
-constexpr int kRowWords = kChunkPairs + 1;  // odd: rows fall in distinct banks
+constexpr int kOuterWarps = kOuterThreads / 32;
+constexpr int kOuterStages = 3;  // outerp's ring of tiles
 constexpr int kReduceX = 32;
 constexpr int kReduceY = 16;
 
@@ -127,6 +138,12 @@ constexpr long long perpix_smem(int cpad, int bn) {
   return 2LL * cpad * cpad + 2LL * (kPerpixStages + 1) * cpad * (bn + 8);
 }
 
+// shared memory of an outerp block: the ring of kOuterStages tiles, each
+// (CPAD, bn + 8) bf16, and the block's (CPAD, CPAD) fp32 sum
+constexpr long long outerp_smem(int cpad, int bn) {
+  return 2LL * kOuterStages * cpad * (bn + 8) + 4LL * cpad * cpad;
+}
+
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
@@ -151,6 +168,14 @@ __device__ __forceinline__ void cp_async_wait() {
 // block of a row-major tile, n-columns 0-7 in r[0], r[1], 8-15 in r[2], r[3]
 __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], uint32_t addr) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr) : "memory");
+}
+
+// four 8x8 bf16 tiles as stored: of a 16 (rows) x 16 (columns) block of a
+// row-major tile, rows 0-7 | 8-15 of columns 0-7 in r[0] | r[1], of
+// columns 8-15 in r[2] | r[3]
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr) : "memory");
 }
 
@@ -302,93 +327,161 @@ __global__ void __launch_bounds__(kPerpixThreads, 1)
   asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
-__device__ __forceinline__ uint32_t pack(bf16 a, bf16 b) {
-  return (uint32_t)__bfloat16_as_ushort(a) |
-         ((uint32_t)__bfloat16_as_ushort(b) << 16);
-}
+// o[p] = bf16(x[p] * 1.03125) for (npix, C, N) x and o, and partial[b] =
+// the (C, C) fp32 sum over block b's items of x[p][:, tile] @ x[p][:, tile]^T.
+// Items, tiles and the blocks' ranges as perpix_kernel's. Each warp keeps
+// the 16x16 blocks on and above the diagonal of a (CPAD, CPAD) sum in
+// registers across all its items; the block adds its warps' sums in warp
+// order and mirrors them below the diagonal.
+template <int CPAD>
+__global__ void __launch_bounds__(kOuterThreads, 1)
+    outerp_kernel(const bf16* __restrict__ x, bf16* __restrict__ o,
+                  float* __restrict__ partial, int C, int N, int bn, int tiles,
+                  int items, bool vec) {
+  constexpr int KT = CPAD / 16;              // 16-row blocks of a tile
+  constexpr int NB = KT * (KT + 1) / 2;      // 16x16 blocks of the sum on and above the diagonal
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int ld = bn + 8;
+  const int tile_elems = CPAD * ld;
+  bf16* ring = reinterpret_cast<bf16*>(smem);  // kOuterStages x (CPAD, ld)
+  float* sum = reinterpret_cast<float*>(ring + kOuterStages * tile_elems);  // (CPAD, CPAD)
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const bf16 zero = __float2bfloat16_rn(0.0f);
 
-__device__ __forceinline__ float2 unpack(uint32_t v) {
-  return make_float2(__uint_as_float(v << 16), __uint_as_float(v & 0xffff0000u));
-}
+  // rows C..CPAD-1: no copy writes them; the first item's barrier orders
+  // these stores before any read
+  for (int s = 0; s < kOuterStages; ++s)
+    for (int i = tid; i < (CPAD - C) * ld; i += kOuterThreads)
+      ring[s * tile_elems + C * ld + i] = zero;
 
-__global__ void __launch_bounds__(kOuterThreads)
-    outerp_partials(const bf16* __restrict__ x, bf16* __restrict__ o,
-                    float* __restrict__ partial, long long npix, int C, int N) {
-  // bf16 column pairs of one pixel's rows; reused for the group sums
-  __shared__ uint32_t tile[kMaxC * kRowWords];
-  const int ct = (C + 3) / 4;  // 4x4 output tiles per side
-  const int rows = 4 * ct;     // rows from C up stay zero
-  const int tiles = ct * ct;
-  const int groups = max(1, kOuterThreads / tiles);
-  const int tid = threadIdx.x;
-  const int my_tile = tid % tiles, g = tid / tiles;
-  const bool computes = g < groups;
-  const int ra = 4 * (my_tile / ct), rb = 4 * (my_tile % ct);
-
-  float acc[4][4];
-#pragma unroll
-  for (int r = 0; r < 4; ++r)
-#pragma unroll
-    for (int s = 0; s < 4; ++s) acc[r][s] = 0.0f;
-
-  const long long p_begin = npix * blockIdx.x / gridDim.x;
-  const long long p_end = npix * (blockIdx.x + 1) / gridDim.x;
-  for (long long pix = p_begin; pix < p_end; ++pix) {
-    const bf16* xs = x + (size_t)pix * C * N;
-    bf16* os = o + (size_t)pix * C * N;
-    for (int n0 = 0; n0 < N; n0 += 2 * kChunkPairs) {
-      const int np = min(kChunkPairs, (N - n0 + 1) / 2);
-      for (int i = tid; i < rows * np; i += kOuterThreads) {
-        const int row = i / np, p = i % np, n = n0 + 2 * p;
-        bf16 v0 = __float2bfloat16_rn(0.0f), v1 = v0;
-        if (row < C) {
-          const size_t at = (size_t)row * N + n;
-          v0 = xs[at];
-          os[at] = __float2bfloat16_rn(scaled(__bfloat162float(v0)));
-          if (n + 1 < N) {
-            v1 = xs[at + 1];
-            os[at + 1] = __float2bfloat16_rn(scaled(__bfloat162float(v1)));
-          }
-        }
-        tile[row * kRowWords + p] = pack(v0, v1);
+  // x[pix][:, tile columns] -> dst (C rows of the tile; columns past N zero)
+  auto load = [&](bf16* dst, int pix, int tile) {
+    const int n0 = tile * bn, valid = min(bn, N - n0);
+    const bf16* src = x + (size_t)pix * C * N + n0;
+    if (vec) {
+      const int cpr = bn >> 3, full = valid >> 3;  // 16-byte chunks per row
+      for (int i = tid; i < C * cpr; i += kOuterThreads) {
+        const int r = i / cpr, j = i - r * cpr;
+        const bf16* row = src + (size_t)r * N;
+        cp_async16(smem_u32(dst + r * ld + 8 * j), j < full ? row + 8 * j : row,
+                   j < full ? 16 : 0);
       }
-      __syncthreads();
-      if (computes) {
-        for (int p = g; p < np; p += groups) {
-          float2 a[4], b[4];
-#pragma unroll
-          for (int r = 0; r < 4; ++r) {
-            a[r] = unpack(tile[(ra + r) * kRowWords + p]);
-            b[r] = unpack(tile[(rb + r) * kRowWords + p]);
-          }
-#pragma unroll
-          for (int r = 0; r < 4; ++r)
-#pragma unroll
-            for (int s = 0; s < 4; ++s)
-              acc[r][s] += a[r].x * b[s].x + a[r].y * b[s].y;
-        }
+    } else {
+      for (int i = tid; i < C * bn; i += kOuterThreads) {
+        const int r = i / bn, j = i - r * bn;
+        dst[r * ld + j] = j < valid ? src[(size_t)r * N + j] : zero;
       }
-      __syncthreads();
     }
-  }
+  };
+  // the scaled tile, rows c < C and columns n < N -> o[pix]
+  auto pass_through = [&](const bf16* xs, int pix, int tile) {
+    const int n0 = tile * bn, valid = min(bn, N - n0);
+    bf16* dst = o + (size_t)pix * C * N + n0;
+    if (vec) {
+      const int cpr = valid >> 3;
+      for (int i = tid; i < C * cpr; i += kOuterThreads) {
+        const int r = i / cpr, j = i - r * cpr;
+        uint4 v = *reinterpret_cast<const uint4*>(xs + r * ld + 8 * j);
+        __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&v);
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          const float2 f = __bfloat1622float2(h[k]);
+          h[k] = __floats2bfloat162_rn(scaled(f.x), scaled(f.y));
+        }
+        *reinterpret_cast<uint4*>(dst + (size_t)r * N + 8 * j) = v;
+      }
+    } else {
+      for (int i = tid; i < C * valid; i += kOuterThreads) {
+        const int r = i / valid, j = i - r * valid;
+        dst[(size_t)r * N + j] = __float2bfloat16_rn(scaled(__bfloat162float(xs[r * ld + j])));
+      }
+    }
+  };
 
-  // the groups' sums, added in group order
-  float* red = reinterpret_cast<float*>(tile);  // groups * tiles * 16 <= 4096
-  if (computes) {
+  // acc[b][h]: block b = (i, j), i <= j, in row order; n8 half h. The
+  // m16n8 accumulator holds rows 16i + g (acc[b][h][0..1]) and + 8
+  // ([2..3]), columns 16j + 8h + 2t + {0, 1}
+  float acc[NB][2][4];
 #pragma unroll
-    for (int r = 0; r < 4; ++r)
+  for (int b = 0; b < NB; ++b)
 #pragma unroll
-      for (int s = 0; s < 4; ++s)
-        red[(g * tiles + my_tile) * 16 + r * 4 + s] = acc[r][s];
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[b][h][e] = 0.0f;
+
+  const int first = (int)((long long)items * blockIdx.x / gridDim.x);
+  const int count = (int)((long long)items * (blockIdx.x + 1) / gridDim.x) - first;
+  constexpr int pending = kOuterStages - 1;  // copy groups in flight ahead of the item in use
+  int load_pix = first / tiles, pix = load_pix;
+  int load_tile = first % tiles, tile = load_tile;
+  int load_buf = 0, buf = 0;
+  auto load_next = [&]() {
+    load(ring + load_buf * tile_elems, load_pix, load_tile);
+    if (++load_buf == kOuterStages) load_buf = 0;
+    if (++load_tile == tiles) load_tile = 0, ++load_pix;
+  };
+
+  for (int s = 0; s < pending; ++s) {
+    if (s < count) load_next();
+    cp_async_commit();  // empty groups keep the count of groups regular
   }
-  __syncthreads();
+  for (int it = 0; it < count; ++it) {
+    cp_async_wait<pending - 1>();  // item it's group has landed
+    // every thread's copies of item it have landed, and every thread is
+    // done with item it - 1, whose buffer the next copy fills
+    __syncthreads();
+    if (it + pending < count) load_next();
+    cp_async_commit();
+
+    const bf16* xs = ring + buf * tile_elems;
+    const int strips = (min(bn, N - tile * bn) + 15) >> 4;
+    for (int s = warp; s < strips; s += kOuterWarps) {
+      // the strip's 16 columns of every 16-row block: the A operand of
+      // block row i and, as stored, the .col B operand of block column j
+      uint32_t f[KT][4];
+#pragma unroll
+      for (int k = 0; k < KT; ++k)
+        ldmatrix_x4(f[k], smem_u32(xs + (16 * k + (lane & 15)) * ld + 16 * s + (lane >> 4) * 8));
+      int b = 0;
+#pragma unroll
+      for (int i = 0; i < KT; ++i)
+#pragma unroll
+        for (int j = i; j < KT; ++j, ++b) {
+          mma_bf16(acc[b][0], f[i], f[j][0], f[j][2]);
+          mma_bf16(acc[b][1], f[i], f[j][1], f[j][3]);
+        }
+    }
+    pass_through(xs, pix, tile);
+    if (++buf == kOuterStages) buf = 0;
+    if (++tile == tiles) tile = 0, ++pix;
+  }
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+
+  // the warps' sums, added in warp order
+  const int g = lane >> 2, t = lane & 3;
+  for (int w = 0; w < kOuterWarps; ++w) {
+    if (warp == w) {
+      int b = 0;
+#pragma unroll
+      for (int i = 0; i < KT; ++i)
+#pragma unroll
+        for (int j = i; j < KT; ++j, ++b)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            float* p = sum + (16 * i + g) * CPAD + 16 * j + 8 * h + 2 * t;
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              float* at = p + (e >> 1) * 8 * CPAD + (e & 1);
+              *at = w == 0 ? acc[b][h][e] : *at + acc[b][h][e];
+            }
+          }
+    }
+    __syncthreads();
+  }
   float* out = partial + (size_t)blockIdx.x * C * C;
   for (int e = tid; e < C * C; e += kOuterThreads) {
-    const int c = e / C, d = e % C;
-    const int at = ((c / 4) * ct + d / 4) * 16 + (c % 4) * 4 + d % 4;
-    float sum = 0.0f;
-    for (int k = 0; k < groups; ++k) sum += red[k * tiles * 16 + at];
-    out[e] = sum;
+    const int c = e / C, d = e - c * C;
+    out[e] = (c >> 4) <= (d >> 4) ? sum[c * CPAD + d] : sum[d * CPAD + c];
   }
 }
 
@@ -411,18 +504,16 @@ __global__ void __launch_bounds__(kReduceX * kReduceY)
   }
 }
 
-// lets perpix_kernel<CPAD> take a block's most shared memory on the current
-// device; the attribute is set once per device
-template <int CPAD>
-cudaError_t allow_smem() {
-  static std::atomic<uint64_t> done{0};  // one bit per device
+// lets `kernel` take a block's most shared memory on the current device;
+// the attribute is set once per device, `done` keeps a bit per device
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, std::atomic<uint64_t>& done) {
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   const uint64_t bit = 1ULL << (dev & 63);
   if (done.load() & bit) return cudaSuccess;
-  err = cudaFuncSetAttribute(perpix_kernel<CPAD>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxBlockSmem);
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxBlockSmem);
   if (err == cudaSuccess) done.fetch_or(bit);
   return err;
 }
@@ -430,14 +521,35 @@ cudaError_t allow_smem() {
 template <int CPAD>
 int launch_perpix(const bf16* x, const bf16* wt, bf16* o, long long npix, int C,
                   int N, int bn, int smem_bytes, int grid, cudaStream_t stream) {
+  static std::atomic<uint64_t> done{0};
   if (smem_bytes > kStaticSmem) {
-    const cudaError_t err = allow_smem<CPAD>();
+    const cudaError_t err = allow_smem(perpix_kernel<CPAD>, done);
     if (err != cudaSuccess) return (int)err;
   }
   const bool vec = (uintptr_t)x % 16 == 0 && (uintptr_t)o % 16 == 0 && N % 8 == 0;
   const int tiles = (N + bn - 1) / bn;
   perpix_kernel<CPAD><<<grid, kPerpixThreads, smem_bytes, stream>>>(
       x, wt, o, C, N, bn, tiles, (int)(npix * tiles), vec);
+  return (int)cudaGetLastError();
+}
+
+template <int CPAD>
+int launch_outerp(const bf16* x, bf16* o, float* partial, float* acc, long long npix,
+                  int C, int N, int bn, int smem_bytes, int grid, cudaStream_t stream) {
+  static std::atomic<uint64_t> done{0};
+  if (smem_bytes > kStaticSmem) {
+    const cudaError_t err = allow_smem(outerp_kernel<CPAD>, done);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const bool vec = (uintptr_t)x % 16 == 0 && (uintptr_t)o % 16 == 0 && N % 8 == 0;
+  const int tiles = (N + bn - 1) / bn;
+  outerp_kernel<CPAD><<<grid, kOuterThreads, smem_bytes, stream>>>(
+      x, o, partial, C, N, bn, tiles, (int)(npix * tiles), vec);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const int cc = C * C;
+  outerp_reduce<<<(cc + kReduceX - 1) / kReduceX, dim3(kReduceX, kReduceY), 0, stream>>>(
+      partial, acc, grid, cc);
   return (int)cudaGetLastError();
 }
 
@@ -485,22 +597,28 @@ extern "C" int tdeed_probe_perpix(const void* x, const void* wt, void* o,
   }
 }
 
-// x, o: (npix, C, N) bf16; partial: (nparts, C, C) fp32 scratch; acc:
-// (C, C) fp32; all contiguous on the current device, 1 <= C <= 64,
-// 1 <= nparts <= npix. o = x * 1.03125; acc = sum over p of x[p] @ x[p]^T.
-extern "C" int tdeed_probe_outerp(const void* x, void* o, float* partial,
-                                  float* acc, long long npix, int C, int N,
-                                  int nparts, void* stream) {
-  if (npix <= 0 || C < 1 || C > kMaxC || N < 1 || nparts < 1 || nparts > npix)
+// x, o: (npix, C, N) bf16; partial: (grid, C, C) fp32 scratch; acc:
+// (C, C) fp32; all contiguous on the current device, 1 <= C <= 64.
+// o = x * 1.03125; acc = sum over p of x[p] @ x[p]^T, fp32 sums. The launch
+// plan (kernels/probe.py:outerp_plan): c_pad in {16, 32, 48, 64}, at least
+// C; bn a multiple of 16; smem_bytes at least what the ring and the sum
+// take, at most 227 KB; 1 <= grid <= items = npix * ceil(N / bn) <= INT_MAX.
+extern "C" int tdeed_probe_outerp(const void* x, void* o, float* partial, float* acc,
+                                  long long npix, int C, int N, int c_pad, int bn,
+                                  int smem_bytes, int grid, void* stream) {
+  if (npix <= 0 || npix > INT_MAX || C < 1 || C > kMaxC || N < 1 ||
+      c_pad < C || c_pad % 16 != 0 || c_pad > kMaxC || bn < 16 || bn % 16 != 0 ||
+      smem_bytes < outerp_smem(c_pad, bn) || smem_bytes > kMaxBlockSmem)
     return (int)cudaErrorInvalidValue;
+  const long long items = npix * ((N + (long long)bn - 1) / bn);
+  if (items > INT_MAX || grid < 1 || grid > items) return (int)cudaErrorInvalidValue;
+  const bf16* xp = static_cast<const bf16*>(x);
+  bf16* op = static_cast<bf16*>(o);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  outerp_partials<<<nparts, kOuterThreads, 0, s>>>(
-      static_cast<const bf16*>(x), static_cast<bf16*>(o), partial, npix, C, N);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const int cc = C * C;
-  dim3 block(kReduceX, kReduceY);
-  outerp_reduce<<<(cc + kReduceX - 1) / kReduceX, block, 0, s>>>(partial, acc,
-                                                                  nparts, cc);
-  return (int)cudaGetLastError();
+  switch (c_pad) {
+    case 16: return launch_outerp<16>(xp, op, partial, acc, npix, C, N, bn, smem_bytes, grid, s);
+    case 32: return launch_outerp<32>(xp, op, partial, acc, npix, C, N, bn, smem_bytes, grid, s);
+    case 48: return launch_outerp<48>(xp, op, partial, acc, npix, C, N, bn, smem_bytes, grid, s);
+    default: return launch_outerp<64>(xp, op, partial, acc, npix, C, N, bn, smem_bytes, grid, s);
+  }
 }

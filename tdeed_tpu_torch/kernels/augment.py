@@ -200,56 +200,101 @@ def _up16(n: int) -> int:
     return -(-n // 16) * 16
 
 
-def photometric_smem(w: int, in_bytes: int, chunk: int) -> int:
+def _rows_bytes(n: int, px: int, in_bytes: int, per_row: bool) -> int:
+    """n rows of px pixels: one range with 16 bytes for a misaligned head,
+    or (per_row) a 16-byte slot a row with room for its own head."""
+    if per_row:
+        return n * _up16(3 * px * in_bytes + 16)
+    return _up16(3 * n * px * in_bytes + 16)
+
+
+def photometric_smem(seg_w: int, in_bytes: int, chunk: int, segmented: bool) -> int:
     """Dynamic shared memory of one block (csrc/photometric.cu:
     photometric_smem, which refuses a smaller figure): a header, a ring of
     chunk + 4 fp32 rows for the blur, two input stages of chunk + 4 rows
-    and an output tile of chunk bf16 rows, the stages and the tile with 16
-    bytes for a misaligned head."""
-    we = 3 * w
+    and an output tile of chunk bf16 rows, each row ``seg_w`` pixels (the
+    frame's width with one segment). With one segment the rows of a stage
+    or the tile are one range with 16 bytes for a misaligned head;
+    ``segmented``, each row has a slot of its own and an input row holds the
+    blur's 2 + 2 halo columns too."""
     rows = chunk + 2 * HALO
-    return (SMEM_HEADER + _up16(4 * rows * we) + 2 * _up16(rows * we * in_bytes + 16)
-            + _up16(2 * chunk * we + 16))
+    halo = 2 * HALO if segmented else 0
+    return (SMEM_HEADER + _up16(4 * rows * 3 * seg_w)
+            + 2 * _rows_bytes(rows, seg_w + halo, in_bytes, segmented)
+            + _rows_bytes(chunk, seg_w, 2, segmented))
 
 
 @dataclass(frozen=True)
 class PhotometricPlan:
     """How the photometric kernel covers an (H, W) frame: a cluster of
-    ``cluster`` CTAs per frame, CTA r taking the band of rows
-    [r * rows, min(H, (r + 1) * rows)) in chunks of ``chunk`` rows."""
+    ``bands`` x ``segments`` CTAs per frame; CTA r takes the band of rows
+    [b * rows, min(H, (b + 1) * rows)) with b = r // segments, across the
+    columns [s * seg_w, min(W, (s + 1) * seg_w)) with s = r % segments,
+    in chunks of ``chunk`` rows."""
 
     h: int
     w: int
-    cluster: int
+    bands: int
     rows: int
+    segments: int
+    seg_w: int  # columns of a segment, the last one's at most; W with one
     chunk: int
     smem_bytes: int
+
+    @property
+    def cluster(self) -> int:
+        """CTAs of a frame's cluster."""
+        return self.bands * self.segments
+
+
+def max_width(in_dtype: torch.dtype) -> int:
+    """The widest frame photometric_plan takes: MAX_CLUSTER segments, each
+    as wide as a one-row chunk's layout fits in a block's 227 KB."""
+    in_bytes = _IN_BYTES[in_dtype]
+    seg_w = 1
+    while photometric_smem(seg_w + 1, in_bytes, 1, True) <= BLOCK_SHARED_MAX:
+        seg_w += 1
+    return MAX_CLUSTER * seg_w
 
 
 def photometric_plan(h: int, w: int, in_dtype: torch.dtype) -> PhotometricPlan:
     """The photometric kernel's launch for (H, W) frames of ``in_dtype``:
-    bands of at most BAND_ROWS rows, cut evenly, at most MAX_CLUSTER of
-    them (longer bands beyond 448 rows), none empty; then the largest
-    chunk (at most MAX_CHUNK rows, at most the band) whose shared memory
-    lets the most blocks share an SM. Raises ValueError when not even a
-    one-row chunk fits a block's 227 KB (frames some 1,690 pixels wide in
-    bf16, 2,150 in uint8). The grid is one cluster per frame, so the plan
-    does not depend on the card's SM count."""
+    one column segment, the whole width, when a one-row chunk of it fits a
+    block's 227 KB (up to 1,843 bf16 or 2,419 uint8 pixels wide), else the
+    fewest segments, cut evenly, that fit; then bands of at most BAND_ROWS
+    rows, cut evenly, as many as the cluster's MAX_CLUSTER CTAs leave room
+    for (longer bands beyond 448 rows, or beyond fewer rows when segments
+    take some of the 8), none empty; then the largest chunk (at most
+    MAX_CHUNK rows, at most the band) whose shared memory lets the most
+    blocks share an SM. Raises ValueError beyond ``max_width`` (14,712
+    bf16 or 19,328 uint8 pixels). The grid is one cluster per frame, so the
+    plan does not depend on the card's SM count."""
     if h < 3 or w < 3:
         raise ValueError(f"frames must be at least 3x3 for the blur, got {h}x{w}")
     in_bytes = _IN_BYTES[in_dtype]
-    cluster = min(MAX_CLUSTER, -(-h // BAND_ROWS))
-    rows = -(-h // cluster)
-    cluster = -(-h // rows)  # no empty band
+    for segments in range(1, MAX_CLUSTER + 1):
+        seg_w = -(-w // segments)
+        if photometric_smem(seg_w, in_bytes, 1, segments > 1) <= BLOCK_SHARED_MAX:
+            break
+    else:
+        raise ValueError(
+            f"frames {w} pixels wide exceed the photometric kernel's widest, "
+            f"{max_width(in_dtype)} pixels of {in_dtype}: {MAX_CLUSTER} column segments "
+            f"of a block's {BLOCK_SHARED_MAX} bytes of shared memory")
+    segments = -(-w // seg_w)  # no empty segment
+    segmented = segments > 1
+    bands = min(MAX_CLUSTER // segments, -(-h // BAND_ROWS))
+    rows = -(-h // bands)
+    bands = -(-h // rows)  # no empty band
     chunks = range(min(MAX_CHUNK, rows), 0, -1)
-    for blocks in BLOCKS_PER_SM:
+    for blocks in BLOCKS_PER_SM:  # the last, one block, takes a one-row chunk
         budget = BLOCK_SHARED_MAX // blocks - (1024 if blocks > 1 else 0)
-        chunk = next((c for c in chunks if photometric_smem(w, in_bytes, c) <= budget), 0)
+        chunk = next((c for c in chunks
+                      if photometric_smem(seg_w, in_bytes, c, segmented) <= budget), 0)
         if chunk:
-            return PhotometricPlan(h, w, cluster, rows, chunk,
-                                   photometric_smem(w, in_bytes, chunk))
-    raise ValueError(f"frames {w} pixels wide do not fit the photometric kernel's "
-                     f"shared memory ({BLOCK_SHARED_MAX} bytes a block)")
+            break
+    return PhotometricPlan(h, w, bands, rows, segments, seg_w, chunk,
+                           photometric_smem(seg_w, in_bytes, chunk, segmented))
 
 
 @functools.lru_cache(maxsize=None)
@@ -259,7 +304,7 @@ def _kernel():
     built = load("photometric")
     fn = built.lib.tdeed_photometric
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [ptr, i32, ptr, ptr, i32, i32, i32, i32, i32, i32, i32, i32, ptr]
+    fn.argtypes = [ptr, i32, ptr, ptr, i32, i32, i32, i32, i32, i32, i32, i32, i32, i32, ptr]
     fn.restype = ctypes.c_int
     return fn
 
@@ -287,7 +332,8 @@ def photometric(frames: torch.Tensor, params: torch.Tensor) -> torch.Tensor:
         err = fn(
             frames.data_ptr(), 0 if frames.dtype == torch.uint8 else 1,
             params.data_ptr(), out.data_ptr(), bsz, t, h, w,
-            plan.cluster, plan.rows, plan.chunk, plan.smem_bytes, stream,
+            plan.bands, plan.rows, plan.segments, plan.seg_w, plan.chunk, plan.smem_bytes,
+            stream,
         )
     if err != 0:
         raise RuntimeError(f"photometric kernel launch failed: CUDA error {err}")

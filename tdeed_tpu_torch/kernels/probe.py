@@ -11,8 +11,9 @@ with C <= 64 and wt (C, C) bf16.
 A CUDA tensor launches the kernel (csrc/probe.cu) on the current stream
 and adds one to ``<fn>.launches``; a CPU tensor runs the plain version
 (``*_reference``), because the caller asked for the CPU. Any other device
-raises. There is no fallback from one to the other. perpix's launch plan
-is ``perpix_plan``, a pure function the CPU tests check.
+raises. There is no fallback from one to the other. The launch plans of
+perpix and outerp are ``perpix_plan`` and ``outerp_plan``, pure functions
+the CPU tests check.
 """
 
 from __future__ import annotations
@@ -25,9 +26,9 @@ import torch
 
 SCALE = 1.03125  # exact in bf16: x * SCALE rounds once
 MAX_C = 64
-OUTERP_PARTIALS = 512  # blocks of outerp's first pass, each one fp32 (C, C) partial
 
 PERPIX_STAGES = 3  # csrc/probe.cu:kPerpixStages, tiles in a block's ring
+OUTERP_STAGES = 3  # csrc/probe.cu:kOuterStages
 H100_SMS = 132
 BLOCK_SHARED_MAX = 232_448  # 227 KB: the most one block may use on sm_90
 
@@ -71,11 +72,12 @@ def _check(x: torch.Tensor, wt=None) -> None:
 
 
 @dataclass(frozen=True)
-class PerpixPlan:
-    """How the perpix kernel covers (npix, C, N): work items are (pixel,
-    column tile) in order, ``tiles`` tiles of ``bn`` columns per pixel (the
-    last one ragged); block b of ``grid`` takes items [items * b // grid,
-    items * (b + 1) // grid), as csrc/probe.cu:perpix_kernel computes it."""
+class TilePlan:
+    """How the perpix or outerp kernel covers (npix, C, N): work items are
+    (pixel, column tile) in order, ``tiles`` tiles of ``bn`` columns per
+    pixel (the last one ragged); block b of ``grid`` takes items
+    [items * b // grid, items * (b + 1) // grid), as csrc/probe.cu's
+    kernels compute it."""
 
     c: int
     n: int
@@ -87,26 +89,41 @@ class PerpixPlan:
     grid: int
 
 
-def perpix_plan(c: int, n: int, npix: int, sms: int = H100_SMS) -> PerpixPlan:
-    """The perpix launch for npix pixels of (C, N): C padded to the next
-    multiple of 16; shared memory per block for the (C_pad, C_pad) weight,
-    the ring of PERPIX_STAGES tiles and an output tile, each (C_pad,
-    bn + 8), within a block's 227 KB (the layout of csrc/probe.cu:
-    perpix_smem, which refuses a smaller figure); the fewest tiles per pixel
-    whose width fits that, cut evenly and rounded up to 16; one block per
-    SM, or one per item if fewer."""
+def _tile_plan(what: str, c: int, n: int, npix: int, sms: int, fixed, per_column) -> TilePlan:
+    """C padded to the next multiple of 16; the fewest tiles per pixel whose
+    width fits a block's 227 KB, whose shared memory is fixed(c_pad) +
+    per_column(c_pad) * (bn + 8), cut evenly and rounded up to 16; one
+    block per SM, or one per item if fewer."""
     if not (1 <= c <= MAX_C and n >= 1 and npix >= 1):
-        raise ValueError(f"perpix takes 1 <= C <= {MAX_C}, N >= 1, npix >= 1; "
+        raise ValueError(f"{what} takes 1 <= C <= {MAX_C}, N >= 1, npix >= 1; "
                          f"got C={c} N={n} npix={npix}")
     c_pad = -(-c // 16) * 16
-    per_column = 2 * (PERPIX_STAGES + 1) * c_pad  # bf16 bytes of a column of the tiles
-    bn_cap = ((BLOCK_SHARED_MAX - 2 * c_pad * c_pad) // per_column - 8) // 16 * 16
+    bn_cap = ((BLOCK_SHARED_MAX - fixed(c_pad)) // per_column(c_pad) - 8) // 16 * 16
     tiles = -(-n // bn_cap)
     bn = -(-(-(-n // tiles)) // 16) * 16
     if npix * tiles > 2**31 - 1:  # the kernel counts items in 32 bits
-        raise ValueError(f"perpix takes at most 2^31 - 1 work items, got {npix * tiles}")
-    return PerpixPlan(c, n, npix, c_pad, bn, tiles,
-                      2 * c_pad * c_pad + per_column * (bn + 8), min(npix * tiles, sms))
+        raise ValueError(f"{what} takes at most 2^31 - 1 work items, got {npix * tiles}")
+    return TilePlan(c, n, npix, c_pad, bn, tiles,
+                    fixed(c_pad) + per_column(c_pad) * (bn + 8), min(npix * tiles, sms))
+
+
+def perpix_plan(c: int, n: int, npix: int, sms: int = H100_SMS) -> TilePlan:
+    """The perpix launch for npix pixels of (C, N): shared memory per block
+    for the (C_pad, C_pad) weight, the ring of PERPIX_STAGES tiles and an
+    output tile, each (C_pad, bn + 8) (the layout of csrc/probe.cu:
+    perpix_smem, which refuses a smaller figure); tiles as ``_tile_plan``."""
+    return _tile_plan("perpix", c, n, npix, sms, lambda cp: 2 * cp * cp,
+                      lambda cp: 2 * (PERPIX_STAGES + 1) * cp)
+
+
+def outerp_plan(c: int, n: int, npix: int, sms: int = H100_SMS) -> TilePlan:
+    """The outerp launch for npix pixels of (C, N): shared memory per block
+    for the ring of OUTERP_STAGES tiles, each (C_pad, bn + 8) bf16, and the
+    block's (C_pad, C_pad) fp32 sum (csrc/probe.cu:outerp_smem, which
+    refuses a smaller figure); tiles as ``_tile_plan``: at N = 800 one tile
+    is a whole pixel up to C = 32. Each block writes one (C, C) partial."""
+    return _tile_plan("outerp", c, n, npix, sms, lambda cp: 4 * cp * cp,
+                      lambda cp: 2 * OUTERP_STAGES * cp)
 
 
 @functools.lru_cache(maxsize=None)
@@ -117,7 +134,8 @@ def _lib():
     ptr, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
     lib.tdeed_probe_stream.argtypes = [ptr, ptr, i64, ptr]
     lib.tdeed_probe_perpix.argtypes = [ptr, ptr, ptr, i64, i32, i32, i32, i32, i32, i32, ptr]
-    lib.tdeed_probe_outerp.argtypes = [ptr, ptr, ptr, ptr, i64, i32, i32, i32, ptr]
+    lib.tdeed_probe_outerp.argtypes = [ptr, ptr, ptr, ptr, i64, i32, i32, i32, i32, i32, i32,
+                                       ptr]
     for fn in (lib.tdeed_probe_stream, lib.tdeed_probe_perpix, lib.tdeed_probe_outerp):
         fn.restype = ctypes.c_int
     return lib
@@ -181,18 +199,27 @@ def perpix(x: torch.Tensor, wt: torch.Tensor) -> torch.Tensor:
 
 def outerp(x: torch.Tensor):
     """(bf16(x * 1.03125), (C, C) fp32 sum over (h, w) of x[h, w] @
-    x[h, w]^T) for (H, W, C, N) bf16 x. The sum is deterministic: fixed
-    partials, added in a fixed order."""
+    x[h, w]^T) for (H, W, C, N) bf16 x.
+
+    On the card: one pass reads each tile of C rows of a pixel into shared
+    memory with cp.async, stores its scaled copy, and adds its Gram to
+    bf16 tensor-core MMAs with fp32 sums, one block per SM walking its
+    items through a ring of three tiles as ``outerp_plan(C, N, H * W)``
+    lays them out; each block writes a (C, C) partial, and a second pass
+    adds the partials in a fixed order. No atomics: two calls give the same
+    bits. A misaligned x or N % 8 != 0 takes the kernel's element-wise
+    copies and stores."""
     if not _on_card(x, "outerp"):
         return outerp_reference(x)
     _check(x)
     h, w, c, n = x.shape
-    nparts = min(h * w, OUTERP_PARTIALS)
+    p = outerp_plan(c, n, h * w, _sm_count(x.device))
     o = torch.empty_like(x)
-    partial = torch.empty(nparts, c, c, dtype=torch.float32, device=x.device)
+    partial = torch.empty(p.grid, c, c, dtype=torch.float32, device=x.device)
     acc = torch.empty(c, c, dtype=torch.float32, device=x.device)
     _launch("outerp", _lib().tdeed_probe_outerp, x, x.data_ptr(), o.data_ptr(),
-            partial.data_ptr(), acc.data_ptr(), h * w, c, n, nparts)
+            partial.data_ptr(), acc.data_ptr(), h * w, c, n,
+            p.c_pad, p.bn, p.smem_bytes, p.grid)
     outerp.launches += 1
     return o, acc
 

@@ -16,7 +16,7 @@ The probe: stream and outerp's pass-through bit-exact; perpix 1 bf16 ulp,
 floored the same way (the tensor cores add each k16 step's fp32 products
 in their own order), and the same bits from every call;
 outerp's fp32 (C, C) sum within 1e-5 of its largest entry against a
-float64 sum.
+float64 sum (its tensor cores too), and the same bits from every call.
 """
 
 import pytest
@@ -24,9 +24,11 @@ import torch
 
 from tdeed_tpu_torch.kernels import augment, probe
 from tdeed_tpu_torch.kernels.augment import (
+    max_width,
     photometric,
     photometric_plan,
     photometric_reference,
+    photometric_smem,
     sample_params,
     train_preprocess,
 )
@@ -71,26 +73,37 @@ def _assert_within_bf16_ulp(got, want):
 
 # bands that end unevenly ((57, 224): 29 + 28 rows; (256, 256): 4 x 52 + 48),
 # rows that are not 16-byte multiples (W = 796, 61, 11, 3), one-row chunks
-# (bf16 at W = 796)
+# (bf16 at W = 796); then wide frames: one segment (uint8 up to 2,419
+# pixels), 2 segments (bf16 at 2000 and 1920, 8 clusters of 4 bands x 2),
+# 3 ragged ones (5001), 5 or 4 (8192), and the widest bf16 plan, 8
 PHOTOMETRIC_SHAPES = [(224, 224), (448, 796), (3, 3), (37, 61), (57, 224), (224, 796),
-                      (5, 11), (256, 256)]
+                      (5, 11), (256, 256), (16, 2200), (224, 2000), (7, 5001), (16, 8192),
+                      (5, 14_712), (1080, 1920)]
+# clips of the gate combinations that frames of more than 300,000 pixels
+# take, one frame each: none, contrast, blur, both, flip, flip with both,
+# flip with blur, hue + saturation + brightness, all
+WIDE_COMBOS = [0, 8, 16, 24, 32, 56, 48, 7, 63]
 
 
 @pytest.mark.parametrize("hw", PHOTOMETRIC_SHAPES)
 @pytest.mark.parametrize("dtype", [torch.uint8, torch.bfloat16])
 def test_kernel_matches_reference_for_every_gate_combination(cuda, hw, dtype):
     params = _all_gate_combinations(cuda)
-    frames = _frames((64, 2, *hw, 3), dtype, cuda)
+    frames_per_clip = 2
+    if hw[0] * hw[1] > 300_000:
+        params, frames_per_clip = params[WIDE_COMBOS].contiguous(), 1
+    frames = _frames((params.shape[0], frames_per_clip, *hw, 3), dtype, cuda)
     got = photometric(frames, params)
     torch.cuda.synchronize()
     assert got.dtype == torch.bfloat16 and got.shape == frames.shape
     _assert_within_bf16_ulp(got, photometric_reference(frames, params))
 
 
-@pytest.mark.parametrize("hw", [(224, 224), (57, 224), (37, 61)])
+@pytest.mark.parametrize("hw", [(224, 224), (57, 224), (37, 61), (20, 2000)])
 def test_kernel_misaligned_input_and_two_calls_give_the_same_bits(cuda, hw):
     """Frames starting 2 bytes past a 16-byte boundary take the element
-    copies at each chunk's head and tail; every call gives the same bits."""
+    copies at each chunk's head and tail (with segments, at each row's:
+    (20, 2000) bf16 is cut in 2); every call gives the same bits."""
     params = _all_gate_combinations(cuda)
     shape = (64, 2, *hw, 3)
     flat = _frames((torch.Size(shape).numel() + 1,), torch.bfloat16, cuda)
@@ -103,14 +116,19 @@ def test_kernel_misaligned_input_and_two_calls_give_the_same_bits(cuda, hw):
     assert torch.equal(got, photometric(frames.contiguous().clone(), params))
 
 
-@pytest.mark.parametrize("hw", [(224, 224), (448, 796), (57, 224)])
-def test_contrast_mean_crosses_the_bands(cuda, hw):
-    """Top half bright, bottom half dark: each band's partial is far from
-    the frame's mean, which only the cluster's sum gives."""
+@pytest.mark.parametrize("hw,dtype", [
+    ((224, 224), torch.uint8), ((448, 796), torch.uint8), ((57, 224), torch.uint8),
+    ((20, 2600), torch.uint8), ((1080, 1920), torch.uint8), ((1080, 1920), torch.bfloat16)])
+def test_contrast_mean_crosses_the_bands(cuda, hw, dtype):
+    """Top half bright, left half brighter: each band's and each column
+    segment's partial is far from the frame's mean, which only the
+    cluster's sum gives ((20, 2600) uint8: 2 segments of one band)."""
     h, w = hw
-    assert photometric_plan(h, w, torch.uint8).cluster > 1
+    assert photometric_plan(h, w, dtype).cluster > 1
     frames = _frames((4, 2, h, w, 3), torch.uint8, cuda) // 8
-    frames[:, :, : h // 2] += 200
+    frames[:, :, : h // 2] += 150
+    frames[:, :, :, : w // 2] += 50
+    frames = frames.to(dtype)
     params = torch.zeros(4, 16, device=cuda)
     params[:, 6] = 1.0  # contrast on
     params[:, 7] = torch.tensor([0.7, 0.9, 1.1, 1.2], device=cuda)
@@ -149,8 +167,9 @@ def test_wrapper_raises_instead_of_falling_back(cuda):
         photometric(frames, torch.zeros(1, 16))
     with pytest.raises(TypeError):
         photometric(frames.float(), torch.zeros(1, 16, device=cuda))
-    with pytest.raises(ValueError):  # wider than a block's shared memory takes
-        photometric(_frames((1, 1, 4, 2000, 3), torch.bfloat16, cuda), torch.zeros(1, 16, device=cuda))
+    with pytest.raises(ValueError):  # wider than 8 column segments take
+        photometric(_frames((1, 1, 4, max_width(torch.bfloat16) + 1, 3), torch.bfloat16, cuda),
+                    torch.zeros(1, 16, device=cuda))
 
 
 def test_photometric_entry_refuses_a_bad_plan(cuda):
@@ -159,7 +178,9 @@ def test_photometric_entry_refuses_a_bad_plan(cuda):
     params = _all_gate_combinations(cuda)[::32].contiguous()  # clips 0 and 32: contrast on in 32
     out = torch.empty_like(frames)
     p = photometric_plan(h, w, frames.dtype)
-    good = (p.cluster, p.rows, p.chunk, p.smem_bytes)
+    good = (p.bands, p.rows, p.segments, p.seg_w, p.chunk, p.smem_bytes)
+    # the same frame cut in 2 bands x 2 column segments
+    seg = (2, 112, 2, 112, 8, photometric_smem(112, 2, 8, True))
     fn = augment._kernel()
     stream = torch.cuda.current_stream().cuda_stream
 
@@ -167,14 +188,57 @@ def test_photometric_entry_refuses_a_bad_plan(cuda):
         return fn(frames.data_ptr(), 1, params.data_ptr(), out.data_ptr(), 2, 3, h, w,
                   *plan, stream)
 
-    for bad in ((9, 25, 8, p.smem_bytes),  # more than 8 CTAs in a cluster
-                (4, 55, 8, p.smem_bytes),  # 4 x 55 rows miss the frame's last 4
-                (5, 56, 8, p.smem_bytes),  # the fifth band is empty
-                (4, 56, 0, p.smem_bytes), (4, 56, 9, p.smem_bytes),  # chunk out of range
-                (*good[:3], p.smem_bytes - 16),  # less shared memory than the layout takes
-                (*good[:3], 232_448 + 16)):  # more than a block may have
+    for bad in ((9, 25, 1, 224, 8, p.smem_bytes),  # more than 8 CTAs in a cluster
+                (4, 56, 3, 75, 8, seg[5]),  # 4 bands x 3 segments: 12 CTAs
+                (4, 55, 1, 224, 8, p.smem_bytes),  # 4 x 55 rows miss the frame's last 4
+                (5, 56, 1, 224, 8, p.smem_bytes),  # the fifth band is empty
+                (4, 56, 1, 223, 8, p.smem_bytes),  # one segment narrower than the frame
+                (2, 112, 2, 111, 8, seg[5]),  # 2 x 111 columns miss the frame's last 2
+                (2, 112, 3, 112, 8, seg[5]),  # the third segment is empty
+                (2, 112, 0, 112, 8, seg[5]),  # no segment
+                (*good[:4], 0, p.smem_bytes), (*good[:4], 9, p.smem_bytes),  # chunk out of range
+                (*good[:5], p.smem_bytes - 16),  # less shared memory than the layout takes
+                (*seg[:5], seg[5] - 16),  # less than the segmented layout takes
+                (*good[:5], 232_448 + 16)):  # more than a block may have
         assert call(bad) != 0, bad
-    assert call(good) == 0
+    want = photometric_reference(frames, params)
+    for plan in (good, seg):
+        out.zero_()
+        assert call(plan) == 0
+        torch.cuda.synchronize()
+        _assert_within_bf16_ulp(out, want)
+
+
+def _forced_plan(h, w, dtype, segments):
+    """A plan of exactly `segments` column segments (photometric_plan
+    takes one up to 1,843 bf16 pixels), bands and chunk as it cuts them."""
+    seg_w = -(-w // segments)
+    assert -(-w // seg_w) == segments
+    bands = min(augment.MAX_CLUSTER // segments, -(-h // augment.BAND_ROWS))
+    rows = -(-h // bands)
+    bands = -(-h // rows)
+    chunk = min(augment.MAX_CHUNK, rows)
+    smem = photometric_smem(seg_w, 1 if dtype == torch.uint8 else 2, chunk, True)
+    return bands, rows, segments, seg_w, chunk, smem
+
+
+@pytest.mark.parametrize("segments", [2, 3, 8])
+@pytest.mark.parametrize("hw", [(37, 61), (57, 224), (9, 97)])
+@pytest.mark.parametrize("dtype", [torch.uint8, torch.bfloat16])
+def test_forced_segments_match_reference_for_every_gate_combination(cuda, segments, hw, dtype):
+    """The segmented layout on frames that one segment would take: every
+    gate combination, ragged last segments (61 = 21 + 20 + 20 ... 8 x 8 - 3),
+    halos reflected at both edges and mirrored under the flip, and the
+    contrast mean summed over bands x segments."""
+    h, w = hw
+    plan = _forced_plan(h, w, dtype, segments)
+    params = _all_gate_combinations(cuda)
+    frames = _frames((64, 2, h, w, 3), dtype, cuda)
+    out = torch.empty(frames.shape, dtype=torch.bfloat16, device=cuda)
+    err = augment._kernel()(frames.data_ptr(), 0 if dtype == torch.uint8 else 1,
+                            params.data_ptr(), out.data_ptr(), 64, 2, h, w, *plan,
+                            torch.cuda.current_stream().cuda_stream)
+    assert err == 0
     torch.cuda.synchronize()
     _assert_within_bf16_ulp(out, photometric_reference(frames, params))
 
@@ -253,19 +317,52 @@ def test_probe_perpix_entry_refuses_a_bad_plan(cuda):
     _assert_within_bf16_ulp(o, probe.perpix_reference(x, wt))
 
 
-@pytest.mark.parametrize("shape", [(16, 16, 24, 800), (3, 5, 20, 37), (2, 3, 64, 300), (1, 1, 1, 1)])
+# C = 17, 24, 48 and 64 (the padding edges), rows of 16-byte multiples or
+# not (N = 37, 300, 801, 9), one tile a pixel or several (C = 48, 64 at
+# N = 800 and up), more items than the grid has blocks
+OUTERP_SHAPES = [(16, 16, 24, 800), (3, 5, 20, 37), (2, 3, 64, 300), (1, 1, 1, 1),
+                 (16, 8, 48, 800), (4, 5, 17, 801), (20, 30, 17, 37), (3, 3, 64, 4099),
+                 (20, 30, 64, 800), (7, 9, 1, 9), (30, 40, 24, 16)]
+
+
+@pytest.mark.parametrize("shape", OUTERP_SHAPES)
 def test_probe_outerp_matches_reference(cuda, shape):
-    x = _probe_x(shape, cuda)
-    got, acc = probe.outerp(x)
+    for x in (_probe_x(shape, cuda), _misaligned_probe_x(shape, cuda)):
+        got, acc = probe.outerp(x)
+        torch.cuda.synchronize()
+        assert torch.equal(got, probe.stream_reference(x))
+        xd = x.double()
+        want = torch.einsum("hwcn,hwdn->cd", xd, xd)
+        assert acc.dtype == torch.float32 and acc.shape == (shape[2], shape[2])
+        err = float((acc.double() - want).abs().max())
+        assert err <= 1e-5 * float(want.abs().max()), err
+        again, acc2 = probe.outerp(x)
+        assert torch.equal(acc, acc2) and torch.equal(got, again)  # fixed partials in a fixed order
+
+
+def test_probe_outerp_entry_refuses_a_bad_plan(cuda):
+    x = _probe_x((2, 2, 24, 160), cuda)
+    o = torch.empty_like(x)
+    p = probe.outerp_plan(24, 160, 4)
+    partial = torch.empty(4 * p.tiles, 24, 24, dtype=torch.float32, device=cuda)
+    acc = torch.empty(24, 24, dtype=torch.float32, device=cuda)
+    good = (p.c_pad, p.bn, p.smem_bytes, p.grid)
+    lib = probe._lib()
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def call(plan):
+        return lib.tdeed_probe_outerp(x.data_ptr(), o.data_ptr(), partial.data_ptr(),
+                                      acc.data_ptr(), 4, 24, 160, *plan, stream)
+
+    for bad in ((16, *good[1:]), (p.c_pad, 8, *good[2:]), (80, *good[1:]),
+                (*good[:2], p.smem_bytes - 4, p.grid), (*good[:2], 232_448 + 16, p.grid),
+                (*good[:3], 4 * p.tiles + 1), (*good[:3], 0)):
+        assert call(bad) != 0, bad
+    assert call(good) == 0
     torch.cuda.synchronize()
-    assert torch.equal(got, probe.stream_reference(x))
-    xd = x.double()
-    want = torch.einsum("hwcn,hwdn->cd", xd, xd)
-    assert acc.dtype == torch.float32 and acc.shape == (shape[2], shape[2])
-    err = float((acc.double() - want).abs().max())
-    assert err <= 1e-5 * float(want.abs().max()), err
-    _, again = probe.outerp(x)
-    assert torch.equal(acc, again)  # fixed partials in a fixed order
+    want_o, want_acc = probe.outerp_reference(x)
+    assert torch.equal(o, want_o)
+    assert float((acc - want_acc).abs().max()) <= 1e-5 * float(want_acc.abs().max())
 
 
 def test_probe_launch_counters_and_errors(cuda):

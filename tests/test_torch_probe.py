@@ -196,17 +196,8 @@ def test_perpix_plan_fits_the_card_for_every_c(n):
                 assert _plan_smem(p.c_pad, bn) > probe.BLOCK_SHARED_MAX
 
 
-@pytest.mark.parametrize(
-    "c,n,npix",
-    [(24, 800, 1), (48, 800, 3), (1, 1, 1), (17, 37, 600), (64, 801, 700), (33, 9, 2000),
-     (24, 160, 1000), (15, 129, 64), (16, 1904, 300), (64, 4099, 5)],
-)
-def test_perpix_plan_covers_every_pixel_and_column_once(c, n, npix):
-    """The blocks' item ranges, taken as the kernel takes them (block b:
-    items [items * b // grid, items * (b + 1) // grid), item i: pixel
-    i // tiles, columns from (i % tiles) * bn), cover each (pixel, column)
-    of the output exactly once."""
-    p = probe.perpix_plan(c, n, npix)
+def _assert_covers_every_pixel_and_column_once(p):
+    n, npix = p.n, p.npix
     items = npix * p.tiles
     hits = np.zeros((npix, n), np.int32)
     ends = []
@@ -222,6 +213,23 @@ def test_perpix_plan_covers_every_pixel_and_column_once(c, n, npix):
     assert ends[0][0] == 0 and ends[-1][1] == items
     assert all(a[1] == b[0] for a, b in zip(ends, ends[1:]))  # contiguous, in order
     assert (hits == 1).all()
+
+
+PLAN_COVER_CASES = [(24, 800, 1), (48, 800, 3), (1, 1, 1), (17, 37, 600), (64, 801, 700),
+                    (33, 9, 2000), (24, 160, 1000), (15, 129, 64), (16, 1904, 300),
+                    (64, 4099, 5)]
+
+
+@pytest.mark.parametrize(
+    "c,n,npix",
+    PLAN_COVER_CASES,
+)
+def test_perpix_plan_covers_every_pixel_and_column_once(c, n, npix):
+    """The blocks' item ranges, taken as the kernel takes them (block b:
+    items [items * b // grid, items * (b + 1) // grid), item i: pixel
+    i // tiles, columns from (i % tiles) * bn), cover each (pixel, column)
+    of the output exactly once."""
+    _assert_covers_every_pixel_and_column_once(probe.perpix_plan(c, n, npix))
 
 
 def test_perpix_plan_at_the_tool_shapes():
@@ -242,6 +250,55 @@ def test_perpix_plan_at_the_tool_shapes():
         probe.perpix_plan(24, 800, 0)
     with pytest.raises(ValueError):  # 2^32 work items
         probe.perpix_plan(1, 2048 * 2**12, 2**20)
+
+
+def _outerp_smem(c_pad, bn):
+    """csrc/probe.cu:outerp_smem: a ring of three (c_pad, bn + 8) bf16
+    tiles and the block's (c_pad, c_pad) fp32 sum."""
+    return 2 * 3 * c_pad * (bn + 8) + 4 * c_pad * c_pad
+
+
+@pytest.mark.parametrize("n", PLAN_NS)
+def test_outerp_plan_fits_the_card_for_every_c(n):
+    """For every C <= 64: C padded to the next multiple of 16, tiles that
+    are multiples of 16 with none empty, one block's shared memory within
+    227 KB, the fewest such tiles, one block per SM or per item."""
+    for c in range(1, probe.MAX_C + 1):
+        for npix in (1, 5, 12544):
+            p = probe.outerp_plan(c, n, npix)
+            assert p.c_pad % 16 == 0 and c <= p.c_pad < c + 16
+            assert p.bn % 16 == 0 and p.bn >= 16
+            assert (p.tiles - 1) * p.bn < n <= p.tiles * p.bn
+            assert p.smem_bytes == _outerp_smem(p.c_pad, p.bn) <= probe.BLOCK_SHARED_MAX
+            assert p.grid == min(npix * p.tiles, probe.H100_SMS)
+            if p.tiles > 1:  # the fewest tiles: the width of one fewer does not fit
+                bn = -(-(-(-n // (p.tiles - 1))) // 16) * 16
+                assert _outerp_smem(p.c_pad, bn) > probe.BLOCK_SHARED_MAX
+
+
+@pytest.mark.parametrize("c,n,npix", PLAN_COVER_CASES)
+def test_outerp_plan_covers_every_pixel_and_column_once(c, n, npix):
+    """outerp's blocks take their items as perpix's do: each (pixel, column)
+    of x is staged, passed through and summed exactly once."""
+    _assert_covers_every_pixel_and_column_once(probe.outerp_plan(c, n, npix))
+
+
+def test_outerp_plan_at_the_tool_shape():
+    """The plan the probe tool runs, one block per SM: a whole pixel per
+    tile at C = 24 (155,136 B of ring and 4,096 B of sum); the stacked
+    C = 48 would take two tiles a pixel, as C = 64 does."""
+    p = probe.outerp_plan(24, 800, 112 * 112)
+    assert (p.c_pad, p.bn, p.tiles, p.smem_bytes, p.grid) == (32, 800, 1, 159_232, 132)
+    p48 = probe.outerp_plan(48, 800, 112 * 56)
+    assert (p48.c_pad, p48.bn, p48.tiles, p48.smem_bytes, p48.grid) == (48, 400, 2, 126_720, 132)
+    assert probe.outerp_plan(64, 800, 3).tiles == 2
+    assert probe.outerp_plan(16, 8, 1).smem_bytes <= 48 * 1024  # no opt-in attribute needed
+    assert probe.outerp_plan(24, 800, 10, sms=4).grid == 4
+    for bad in ((65, 800, 1), (0, 800, 1), (24, 0, 1), (24, 800, 0)):
+        with pytest.raises(ValueError, match="outerp"):
+            probe.outerp_plan(*bad)
+    with pytest.raises(ValueError):  # 2^32 work items
+        probe.outerp_plan(1, 2048 * 2**12, 2**20)
 
 
 @pytest.mark.parametrize("fn", [probe.stream, probe.outerp, lambda x: probe.perpix(x, x[0, 0])])

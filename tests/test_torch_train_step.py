@@ -1,5 +1,6 @@
 """Step 0 of the port's training step against the JAX package's, with
-mixup on and the fused photometric kernel on the augment path.
+the fused photometric kernel on the augment path: with mixup on, and the
+loss with mixup off (the uint8 crop straight into the kernel).
 
 The same random values go to both sides: the crop offset, the mixup
 weights, the (B, 16) augment params with the flip gate in slot 14, and
@@ -79,8 +80,9 @@ def _inputs():
     return batch, draws
 
 
-def _jax_step(monkeypatch, batch, draws):
-    """One JAX train step with the injected draws; returns (loss, state)."""
+def _jax_step(monkeypatch, batch, draws, mixup=True, variables=None):
+    """One JAX train step with the injected draws, from ``variables`` or a
+    fresh init; returns (variables, loss, state)."""
     i, j = draws["crop"]
     keep = {k: jnp.asarray(v) for k, v in draws["keep"].items()}
 
@@ -104,36 +106,41 @@ def _jax_step(monkeypatch, batch, draws):
     monkeypatch.setattr(jkernel, "train_preprocess_pallas", preprocess)
 
     jm = jtdeed.TDEED(num_classes=N_CLASSES, clip_len=T, dtype=jnp.float32, **MODEL)
-    v = jax.jit(jm.init, static_argnums=2)(
+    v = variables or jax.jit(jm.init, static_argnums=2)(
         jax.random.PRNGKey(0), jnp.zeros((B, T, CROP, CROP, 3)), False
     )
     tx = jax_optimizer(LR, WARM, COS)
     state = TrainState.create(v["params"], v["batch_stats"], tx)
     step = jax.jit(jax_train_step(
-        jm, tx, crop_dim=CROP, num_classes_bg=NC_BG, mixup=True,
+        jm, tx, crop_dim=CROP, num_classes_bg=NC_BG, mixup=mixup,
         radi_displacement=2, pallas_augment=True,
     ))
     new, metrics = step(state, jax.tree.map(jnp.asarray, batch), jax.random.PRNGKey(1))
     return v, float(metrics["loss"]), new
 
 
-def _jax_augmented(batch, draws):
-    """The JAX kernel's output on the step's cropped mixup blend (the port's
-    crop and blend equal JAX's bit for bit: tests/test_torch_temporal.py)."""
+def _jax_augmented(batch, draws, mixup=True):
+    """The JAX kernel's output on the step's cropped mixup blend, or with
+    mixup off on its uint8 crop (the port's crop and blend equal JAX's bit
+    for bit: tests/test_torch_temporal.py)."""
     i, j = draws["crop"]
     crop = lambda x: torch.from_numpy(x[:, :, i:i + CROP, j:j + CROP])  # noqa: E731
-    blend, _, _ = mixup_batch(
-        crop(batch["frame"]), torch.from_numpy(batch["label"]),
-        crop(batch["frame2"]), torch.from_numpy(batch["label2"]),
-        torch.from_numpy(draws["lam"]), NC_BG,
-    )
-    planar = jnp.transpose(jnp.asarray(blend.float().numpy()).astype(jnp.bfloat16), (0, 1, 4, 2, 3))
+    if mixup:
+        blend, _, _ = mixup_batch(
+            crop(batch["frame"]), torch.from_numpy(batch["label"]),
+            crop(batch["frame2"]), torch.from_numpy(batch["label2"]),
+            torch.from_numpy(draws["lam"]), NC_BG,
+        )
+        frames = jnp.asarray(blend.float().numpy()).astype(jnp.bfloat16)
+    else:
+        frames = jnp.asarray(crop(batch["frame"]).numpy())
+    planar = jnp.transpose(frames, (0, 1, 4, 2, 3))
     out = jkernel.photometric_planar(planar, jnp.asarray(draws["aug"]), interpret=True)
     out = np.array(jnp.transpose(out, (0, 1, 3, 4, 2)).astype(jnp.float32))
     return torch.from_numpy(out).to(torch.bfloat16)
 
 
-def _port_step(variables, batch, draws, dtype, augmented=None):
+def _port_step(variables, batch, draws, dtype, augmented=None, mixup=True):
     """One port train step from the JAX weights; ``augmented`` replaces the
     port's photometric kernel output. Returns (model, loss, gradients)."""
     pm = TDEED(N_CLASSES, T, dtype=dtype, **MODEL)
@@ -144,7 +151,7 @@ def _port_step(variables, batch, draws, dtype, augmented=None):
     pm.load_state_dict(sd, strict=True)
     opt, sched = make_optimizer(pm.parameters(), LR, WARM, COS)
     step = make_train_step(
-        pm, opt, sched, crop_dim=CROP, num_classes_bg=NC_BG, mixup=True,
+        pm, opt, sched, crop_dim=CROP, num_classes_bg=NC_BG, mixup=mixup,
         radi_displacement=2,
     )
     d = StepDraws(
@@ -180,6 +187,27 @@ def test_step0_loss_matches_jax(step0):
     np.testing.assert_allclose(same, jax_loss, rtol=1e-4)  # same augmented input
     np.testing.assert_allclose(loss32, loss64, rtol=1e-4)
     np.testing.assert_allclose(loss32, jax_loss, rtol=2e-3)  # each its own kernel
+
+
+@pytest.fixture(scope="module")
+def step0_mixup_off(step0):
+    """JAX's step-0 loss with mixup off from the same initial weights, and
+    the port's given the JAX kernel's output on the uint8 crop."""
+    batch, draws = _inputs()
+    with pytest.MonkeyPatch.context() as mp:
+        _, jax_loss, _ = _jax_step(mp, batch, draws, mixup=False, variables=step0["variables"])
+    augmented = _jax_augmented(batch, draws, mixup=False)
+    port = _port_step(step0["variables"], batch, draws, torch.float32, augmented, mixup=False)
+    return jax_loss, port[1]
+
+
+def test_step0_loss_matches_jax_with_mixup_off(step0_mixup_off):
+    """Without mixup the uint8 crop goes straight to the kernel and the loss
+    takes the hard labels: the same augmented input gives JAX's loss at
+    rtol 1e-4, as with mixup on."""
+    jax_loss, same = step0_mixup_off
+    assert np.isfinite(same)
+    np.testing.assert_allclose(same, jax_loss, rtol=1e-4)
 
 
 def test_step0_params_and_bn_stats_match_jax(step0):

@@ -28,6 +28,13 @@ Phases, each fatal on failure:
   5. serve: FineDiving_small at full width with seeded random weights
      answers 4-clip requests (100 frames of 256x256 uint8 each), plain and
      with the hflip TTA;
+  5b. spot: a SpottingPredictor with the same weights spots events in one
+     synthetic 600-frame video with the hflip TTA (batch 1, 2 passes) and
+     without (batch 4): device and host aggregation give the same bits,
+     two calls give the same bits, every event is a known class at a frame
+     of the video with a score in [0, 1]; then evaluate() over a 2-video
+     split gives a finite mAP in [0, 1]. It must not launch the
+     photometric kernel (a training augmentation);
   6. train: 3 steps of the flagship training step (batch 8 x clip 100,
      256x256 uint8 cropped to 224, mixup on, bf16 compute, AdamW), which
      must go through the CUDA kernel.
@@ -46,6 +53,7 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -53,7 +61,8 @@ from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 SEED = 0
-CONFIGS = str(Path(__file__).resolve().parent / "configs")
+REPO = Path(__file__).resolve().parent
+CONFIGS = str(REPO / "configs")
 BF16_ULP_AT_2 = 2.0 ** -6  # standardized outputs lie in about [-2.12, 2.64]
 COMPARE_SHAPES = ((224, 224), (448, 796), (16, 2200))
 FLAGSHIP = (8, 100, 224, 224, 3)
@@ -62,6 +71,8 @@ FRAME = 256  # request and training frames before the 224 crop
 REQUESTS = 3
 REQUEST_CLIPS = 4
 TRAIN_STEPS = 3
+SPOT_FRAMES = 600  # the video spot() runs over; evaluate() adds one of EVAL_FRAMES
+EVAL_FRAMES = 300
 KERNEL_SOURCES = ("photometric", "probe")
 # fp32 operations per pixel of the photometric chain (each add, sub, mul,
 # div, min, max and floor once; the blur as two separable 5-tap passes), for
@@ -449,6 +460,158 @@ def serve_phase(torch, cfg, model):
         f"steady {n * len(steady) / sum(steady):.0f} frames/s")
 
 
+class _TimedLoad:
+    """np.load as a frame decoder, with the seconds spent in it."""
+
+    def __init__(self):
+        self.seconds = 0.0
+
+    def __call__(self, path):
+        import numpy as np
+
+        t0 = time.perf_counter()
+        try:
+            return np.load(path)
+        finally:
+            self.seconds += time.perf_counter() - t0
+
+
+def _write_video(frame_dir, video, n, rng):
+    """n random FRAME x FRAME uint8 frames, each np.save'd under the file
+    name the FineDiving scheme resolves ('01__01' -> 01/01/0001.jpg, ...)."""
+    import numpy as np
+
+    path = os.path.join(frame_dir, video.replace("__", "/"))
+    os.makedirs(path)
+    for i in range(n):
+        with open(os.path.join(path, f"{i + 1:04d}.jpg"), "wb") as fp:
+            np.save(fp, rng.integers(0, 256, (FRAME, FRAME, 3), dtype=np.uint8))
+
+
+def _read_windows(pred, frame_dir, video):
+    """Seconds to read every window of the video on the host alone, as
+    spot() reads them, from a cold decoded-frame cache."""
+    from tdeed_tpu_torch.data.frames import load_window
+    from tdeed_tpu_torch.data.loader import FrameCache
+
+    cache = FrameCache(pred.cfg.decode_cache_mb << 20)
+    stride, clip_len = pred.spec.eval_stride, pred.cfg.clip_len
+    t0 = time.perf_counter()
+    for s in pred._windows(SPOT_FRAMES):
+        load_window(pred.spec, frame_dir, video, s, s + clip_len * stride, stride,
+                    pred.decoder, pad=True, cache=cache)
+    return time.perf_counter() - t0
+
+
+def spot_phase(torch, cfg, model, smi):
+    """Sliding-window spotting through SpottingPredictor.spot(), then
+    evaluate() over a split, with the flagship model's weights.
+
+    The card's machine has numpy but no PIL, cv2 or libjpeg, so the frames
+    are synthetic: one FineDiving-layout video of SPOT_FRAMES random
+    256x256 uint8 frames from a seeded numpy generator, under a temporary
+    directory in build/, each written with np.save at the path the
+    FineDiving scheme resolves, and the predictor's decoder (the seam the
+    JAX class also exposes as ``self.decoder``) is an np.load reader. The
+    files sit in the page cache, so "decode" here is a memory read. Each
+    timed call starts with an empty decoded-frame cache, as a new video
+    would.
+    """
+    import tempfile
+
+    import numpy as np
+
+    from tdeed_tpu_torch.data.loader import FrameCache
+    from tdeed_tpu_torch.infer.evaluate import evaluate
+    from tdeed_tpu_torch.infer.predictor import SpottingPredictor
+    from tdeed_tpu_torch.infer.windows import VideoWindows
+    from tdeed_tpu_torch.kernels.augment import photometric
+
+    classes = {f"class{i}": i for i in range(1, cfg.num_classes + 1)}
+    pred = SpottingPredictor(cfg, model.state_dict(), classes,
+                             device=next(model.parameters()).device)
+    load = _TimedLoad()
+    pred.decoder = load
+    rng = np.random.default_rng(SEED + 4)
+    k1_launches = photometric.launches
+    os.makedirs(REPO / "build", exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=REPO / "build") as root:
+        frame_dir = os.path.join(root, "frames")
+        video = "01__01"
+        _write_video(frame_dir, video, SPOT_FRAMES, rng)
+        n_windows = len(pred._windows(SPOT_FRAMES))
+        every = dict(nms="none", threshold=0.0)  # every (frame, class) score
+        for mode, tta in (("tta", True), ("plain", False)):
+            calls = {}
+            for name, kw in (("host", dict(device_aggregate=False, **every)),
+                             ("device", every), ("device again", every),
+                             ("default snms", {})):
+                pred._cache = FrameCache(cfg.decode_cache_mb << 20)
+                load.seconds = 0.0
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                events = pred.spot(frame_dir, video, SPOT_FRAMES, hflip_tta=tta, **kw)
+                wall = time.perf_counter() - t0  # spot() ends reading scores back
+                calls[name] = (events, wall, load.seconds)
+            host, dev, again = (calls[k][0] for k in ("host", "device", "device again"))
+            if len(dev) != SPOT_FRAMES * len(classes):
+                fail(f"spot() with threshold 0 returned {len(dev)} events")
+            if dev != host:
+                fail(f"spot() {mode}: device and host aggregation give different scores")
+            if again != dev:
+                fail(f"spot() {mode}: two calls give different scores")
+            spotted = calls["default snms"][0]
+            if not spotted:
+                fail(f"spot() {mode} spotted no event")
+            for e in dev + spotted:
+                if not (e["label"] in classes and 0 <= e["frame"] < SPOT_FRAMES
+                        and 0.0 <= e["score"] <= 1.0):
+                    fail(f"spot() {mode} returned an invalid event {e}")
+            bs = 1 if tta else pred.batch_size
+            log(f"[spot] {mode} (batch {bs}, {2 if tta else 1} pass(es)), {SPOT_FRAMES} "
+                f"frames of {FRAME}x{FRAME} uint8, {n_windows} windows: "
+                + "; ".join(f"{k} {w * 1e3:.1f} ms ({SPOT_FRAMES / w:.0f} frames/s, "
+                            f"decode {d / w:.1%} of wall)" for k, (_, w, d) in calls.items())
+                + f"; {len(spotted)} events after SNMS; device == host bits, two calls "
+                f"the same bits; {smi}")
+            passes, n_batches = (2 if tta else 1), -(-n_windows // bs)
+            x = torch.zeros((bs, cfg.clip_len, FRAME, FRAME, 3), dtype=torch.uint8,
+                            device=pred.device)
+            fwd_ms = _time_ms(torch, lambda: pred._predict(x, False), 5)
+            log(f"[spot] {mode}, where the time goes: the window reads alone (host, cold "
+                f"frame cache) {_read_windows(pred, frame_dir, video) * 1e3:.1f} ms; the "
+                f"forward {fwd_ms:.2f} ms per batch of {bs} on the card, "
+                f"{fwd_ms * n_batches * passes:.1f} ms for the video's {n_batches} batches "
+                f"x {passes} pass(es)")
+
+        split = []
+        for name, n in ((video, SPOT_FRAMES), ("02__01", EVAL_FRAMES)):
+            if name != video:
+                _write_video(frame_dir, name, n, rng)
+            events = sorted(({"frame": int(rng.integers(0, n)),
+                              "label": f"class{int(rng.integers(1, len(classes) + 1))}"}
+                             for _ in range(6)), key=lambda e: e["frame"])
+            split.append({"video": name, "num_frames": n, "fps": 25.0,
+                          "events": events, "num_events": len(events)})
+        label_file = os.path.join(root, "val.json")
+        with open(label_file, "w") as fp:
+            json.dump(split, fp)
+        data = VideoWindows(
+            cfg.dataset, label_file, frame_dir, cfg.clip_len,
+            overlap_len=pred.spec.eval_overlap_len(cfg.clip_len),
+            stride=pred.spec.eval_stride, decoder=np.load,
+        )
+        t0 = time.perf_counter()
+        m = evaluate(pred.predict_fn, data, "val", classes, printed=False)
+        wall = time.perf_counter() - t0
+    if not (math.isfinite(m) and 0.0 <= m <= 1.0):
+        fail(f"evaluate() returned mAP {m}")
+    log(f"[spot] evaluate() val, 2 videos ({SPOT_FRAMES} + {EVAL_FRAMES} frames, {len(data)} "
+        f"windows, batch 4): mAP {m:.4f} in {wall * 1e3:.1f} ms; {smi}")
+    if photometric.launches != k1_launches:
+        fail("spotting launched the photometric kernel")
+
+
 def train_phase(torch, cfg, model, step):
     gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
     batch = _batch(torch, cfg.batch_size, cfg.clip_len, FRAME, cfg.num_classes_bg,
@@ -476,7 +639,7 @@ def train_phase(torch, cfg, model, step):
 def main() -> int:
     import torch
 
-    device_phase(torch)
+    smi = device_phase(torch)
     try:
         import tdeed_tpu_torch  # noqa: F401
     except ImportError as e:
@@ -497,6 +660,7 @@ def main() -> int:
         f"{cfg.dtype} compute")
     photometric.launches = 0
     serve_phase(torch, cfg, model)
+    spot_phase(torch, cfg, model, smi)
     train_phase(torch, cfg, model, step)
     k1["launches"] = photometric.launches
     if k1["launches"] < TRAIN_STEPS:

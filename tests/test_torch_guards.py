@@ -2,6 +2,7 @@
 config at full width, and it refuses the config values it does not carry
 yet with the ROADMAP.md item that brings them."""
 
+import dataclasses
 import subprocess
 import sys
 from pathlib import Path
@@ -11,6 +12,7 @@ import pytest
 import torch
 
 from tdeed_tpu_torch import load_config
+from tdeed_tpu_torch.infer.predictor import SpottingPredictor
 from tdeed_tpu_torch.kernels.augment import _check
 from tdeed_tpu_torch.models.tdeed import build_model
 from tdeed_tpu_torch.train.schedule import make_optimizer
@@ -36,7 +38,7 @@ def test_importing_every_port_module_leaves_jax_out():
         [sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
         timeout=120, check=True,
     ).stdout.split(" ", 1)
-    assert int(out[0]) >= 15, out  # every module of the slice was imported
+    assert int(out[0]) >= 39, out  # every module of the slice was imported
     assert out[1].strip() == "[] []"
 
 
@@ -97,6 +99,34 @@ def test_steps_refuse_what_the_port_lacks():
         make_train_step(model, opt, sched, two_heads=(5, 18), **common)
     with pytest.raises(NotImplementedError, match="FC2 double head"):
         make_predict_step(model, crop_dim=32, radi_displacement=2, two_heads=(5, 18))
+
+
+@pytest.mark.parametrize(
+    "make,item",
+    [
+        (lambda cfg: SpottingPredictor(cfg, {}, {"a": 1}, n_devices=2, device="cpu"), "DDP"),
+        (lambda cfg: SpottingPredictor(cfg, {}, {"a": 1}, two_heads=(5, 18), device="cpu"),
+         "FC2 double head"),
+        (lambda cfg: SpottingPredictor.from_run("FineDiving_small", str(REPO / "configs")),
+         "checkpoint and the CLIs"),
+        (lambda cfg: SpottingPredictor(dataclasses.replace(cfg, decoder="native"), {}, {"a": 1},
+                                       device="cpu"),
+         "checkpoint and the CLIs"),
+    ],
+    ids=["n_devices", "two_heads", "from_run", "native-decoder"],
+)
+def test_predictor_refuses_what_the_port_lacks(make, item):
+    cfg = load_config("FineDiving_small", config_root=str(REPO / "configs"), clip_len=8)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md") as err:
+        make(cfg)
+    assert item in str(err.value)
+
+
+def test_predictor_defaults_to_cuda_and_never_falls_back(monkeypatch):
+    cfg = load_config("FineDiving_small", config_root=str(REPO / "configs"), clip_len=8)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        SpottingPredictor(cfg, {}, {"a": 1})
 
 
 def _frames(shape, dtype=torch.uint8):

@@ -37,10 +37,23 @@ Phases, each fatal on failure:
      photometric kernel (a training augmentation);
   6. train: 3 steps of the flagship training step (batch 8 x clip 100,
      256x256 uint8 cropped to 224, mixup on, bf16 compute, AdamW), which
-     must go through the CUDA kernel.
+     must go through the CUDA kernel; then 2 steps at acc_grad_iter=2
+     (2 micro-batches of 4), which must launch it twice a step;
+  7. cli: the training CLI (tdeed_tpu_torch.cli.train) on the card, in
+     process, over a synthetic FineDiving-layout dataset (3 train, 1 val
+     and 1 test video of 300 frames of 256x256 uint8, np.save'd under the
+     .jpg names and read by np.load) with FineDiving_small at full width
+     and only its paths, store mode and epochs changed (CLI_CONFIG): store
+     mode, 2 epochs of 6 optimizer steps, then --resume for a third, which
+     must start at step 12 and end at step 18; then the predict CLI
+     (tdeed_tpu_torch.cli.predict) twice over the test split from the
+     run's checkpoint_best, with the same events both times. Artifacts,
+     losses and mAPs are checked; the photometric kernel must launch at
+     least once per optimizer step. The CLI's loader is also timed alone
+     (cold and warm frame cache, on the host and onto the card).
 
 The line before the last is a JSON object with each kernel's route, the
-TPU kernel it replaces, its launches on its path (phases 5-6 for the
+TPU kernel it replaces, its launches on its path (phases 5-7 for the
 photometric kernel, the probe tool's run for the probe kernels), its
 largest error against the plain version, its time, the plain version's,
 the one PyTorch call's that computes the same function (null where there
@@ -71,6 +84,15 @@ FRAME = 256  # request and training frames before the 224 crop
 REQUESTS = 3
 REQUEST_CLIPS = 4
 TRAIN_STEPS = 3
+ACC_STEPS = 2  # flagship steps at acc_grad_iter=2
+CLI_VIDEOS = (("train", 3), ("val", 1), ("test", 1))
+CLI_FRAMES = 300  # frames of each video of the CLI phase's dataset
+CLI_EVENT_EVERY = 10  # one event every 10 frames: val mAP above 0 from random weights
+# the keys of configs/FineDiving/FineDiving_small.json the CLI phase changes,
+# besides the paths and store_mode: 4,800 frames = 48 clips = 6 optimizer
+# steps an epoch; val mAP (the config's criterion) from epoch 1
+CLI_CONFIG = dict(epoch_num_frames=4800, num_epochs=2, warm_up_epochs=1, start_val_epoch=1)
+CLI_RESUME_EPOCHS = 3
 SPOT_FRAMES = 600  # the video spot() runs over; evaluate() adds one of EVAL_FRAMES
 EVAL_FRAMES = 300
 KERNEL_SOURCES = ("photometric", "probe")
@@ -636,6 +658,242 @@ def train_phase(torch, cfg, model, step):
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
 
+def acc_phase(torch, cfg, model, smi):
+    """ACC_STEPS flagship steps at acc_grad_iter=2: batch 8 as 2
+    micro-batches of 4, the kernel launched once per micro-batch."""
+    from tdeed_tpu_torch.kernels.augment import photometric
+    from tdeed_tpu_torch.train.schedule import make_optimizer
+    from tdeed_tpu_torch.train.step import make_train_step
+
+    opt, sched = make_optimizer(model.parameters(), cfg.learning_rate, 100, 10_000)
+    step = make_train_step(
+        model, opt, sched, crop_dim=cfg.crop_dim, num_classes_bg=cfg.num_classes_bg,
+        mixup=cfg.mixup, radi_displacement=cfg.radi_displacement, acc_grad_iter=2, seed=SEED,
+    )
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
+    batch = _batch(torch, cfg.batch_size, cfg.clip_len, FRAME, cfg.num_classes_bg, gen, "cuda")
+    times, losses = [], []
+    for _ in range(ACC_STEPS):
+        before = photometric.launches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(float(step(batch)["loss"]))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        if photometric.launches - before != 2:
+            fail(f"an acc_grad_iter=2 step launched the photometric kernel "
+                 f"{photometric.launches - before} times, not 2")
+    if not all(map(math.isfinite, losses)):
+        fail(f"non-finite acc_grad_iter=2 loss: {losses}")
+    log(f"[train] acc_grad_iter 2 (2 micro-batches of {cfg.batch_size // 2}): losses "
+        f"{', '.join(f'{v:.4f}' for v in losses)}; step times "
+        f"{', '.join(f'{t * 1e3:.1f}' for t in times)} ms; 2 kernel launches a step; {smi}")
+
+
+def _write_cli_dataset(root, rng):
+    """CLI_VIDEOS FineDiving-layout videos of CLI_FRAMES frames, with an
+    event of a random class every CLI_EVENT_EVERY frames; returns
+    (frame_dir, data_root)."""
+    import numpy as np
+
+    frame_dir = os.path.join(root, "frames")
+    data_root = os.path.join(root, "data")
+    ds_dir = os.path.join(data_root, "finediving")
+    os.makedirs(ds_dir)
+    classes = [f"class{i}" for i in range(1, 5)]
+    with open(os.path.join(ds_dir, "class.txt"), "w") as fp:
+        fp.write("\n".join(classes) + "\n")
+    vid = 0
+    for split, count in CLI_VIDEOS:
+        metas = []
+        for _ in range(count):
+            vid += 1
+            name = f"{vid:02d}__01"
+            _write_video(frame_dir, name, CLI_FRAMES, rng)
+            events = [{"frame": f, "label": classes[int(rng.integers(0, len(classes)))]}
+                      for f in range(CLI_EVENT_EVERY // 2, CLI_FRAMES, CLI_EVENT_EVERY)]
+            metas.append({"video": name, "num_frames": CLI_FRAMES, "fps": 25.0,
+                          "events": events, "num_events": len(events)})
+        with open(os.path.join(ds_dir, f"{split}.json"), "w") as fp:
+            json.dump(metas, fp)
+    return frame_dir, data_root
+
+
+def _epoch_lines(cfg, stats, smi):
+    for e in stats["epochs"]:
+        frames = cfg.batch_size * cfg.clip_len * e["steps"]
+        log(f"[cli] epoch {e['epoch']}: {e['steps']} optimizer steps, train wall "
+            f"{e['train_s'] * 1e3:.1f} ms, {frames / e['train_s']:.0f} train frames/s "
+            f"including the loader, waiting for batches {e['wait_s'] * 1e3:.1f} ms "
+            f"({e['wait_s'] / e['train_s']:.1%} of the train wall); val loss "
+            f"{e['val_loss_s'] * 1e3:.1f} ms, val mAP {e['val_map_s'] * 1e3:.1f} ms, "
+            f"checkpoint save {e['save_s'] * 1e3:.1f} ms; {smi}")
+
+
+def _loader_alone(torch, cfg, load, smi):
+    """The training CLI's loader without the step: its stored train plan,
+    sampler, frame cache and BatchLoader as cli/train.py builds them, over
+    one epoch, with a cold frame cache and with one an epoch has filled,
+    read on the host alone and through device_prefetch onto the card
+    (pinning and copies)."""
+    from tdeed_tpu_torch.data.clips import load_plan
+    from tdeed_tpu_torch.data.loader import BatchLoader, ClipSampler, FrameCache, device_prefetch
+    from tdeed_tpu_torch.data.registry import get_spec
+
+    plan = load_plan(cfg.store_dir, cfg.clip_len, cfg.radi_displacement, cfg.train_split)
+    workers = max(4, cfg.num_workers)
+    for how in ("host", "to the card"):
+        parts = []
+        for cached in ("cold", "warm"):
+            cache = FrameCache(cfg.decode_cache_mb << 20)
+            sampler = ClipSampler(plan, cfg.clip_len, get_spec(cfg.dataset).train_stride,
+                                  cfg.radi_displacement, cfg.mixup, decoder=load, cache=cache)
+            loader = BatchLoader(sampler, cfg.batch_size, cfg.dataset_len,
+                                 num_workers=workers, seed=1)
+            if cached == "warm":
+                for _ in loader.epoch(0):  # fill the cache
+                    pass
+            hits, misses = cache.hits, cache.misses
+            load.seconds = 0.0
+            batches = loader.epoch(1)
+            if how == "to the card":
+                batches = device_prefetch(batches, "cuda", depth=2)
+            t0 = time.perf_counter()
+            n = sum(1 for _ in batches)
+            torch.cuda.synchronize()
+            t = (time.perf_counter() - t0) / n
+            hit = (cache.hits - hits) / max(1, cache.hits - hits + cache.misses - misses)
+            parts.append(f"{cached} cache {t * 1e3:.1f} ms a batch "
+                         f"({cfg.batch_size * cfg.clip_len / t:.0f} frames/s; hits {hit:.1%}; "
+                         f"np.load {load.seconds / n * 1e3:.1f} ms a batch over the threads)")
+        log(f"[cli] the loader alone, {how} (batch {cfg.batch_size} x clip {cfg.clip_len}, "
+            f"mixup, {workers} threads): " + "; ".join(parts) + f"; {smi}")
+
+
+def cli_phase(torch, smi):
+    """The two CLIs in process on the card (see the module docstring).
+    The card's machine has no PIL or cv2: the CLIs look the decoder up
+    through tdeed_tpu_torch.data.frames.get_decoder when they start, and
+    it returns an np.load reader here."""
+    import tempfile
+
+    import numpy as np
+
+    from tdeed_tpu_torch import load_config
+    from tdeed_tpu_torch.cli import predict as predict_cli
+    from tdeed_tpu_torch.cli import train as train_cli
+    from tdeed_tpu_torch.data import frames as frame_io
+    from tdeed_tpu_torch.kernels.augment import photometric
+
+    load = _TimedLoad()
+    get_decoder = frame_io.get_decoder
+    frame_io.get_decoder = lambda kind="auto": load
+    os.makedirs(REPO / "build", exist_ok=True)
+    try:
+        with tempfile.TemporaryDirectory(dir=REPO / "build") as root:
+            t0 = time.perf_counter()
+            frame_dir, data_root = _write_cli_dataset(root, np.random.default_rng(SEED + 5))
+            log(f"[cli] dataset: {sum(n for _, n in CLI_VIDEOS)} videos of {CLI_FRAMES} "
+                f"{FRAME}x{FRAME} frames written in {time.perf_counter() - t0:.1f} s")
+            with open(os.path.join(CONFIGS, "FineDiving", "FineDiving_small.json")) as fp:
+                raw = json.load(fp)
+            raw.update(frame_dir=frame_dir, save_dir=os.path.join(root, "save"),
+                       store_dir=os.path.join(root, "store"), **CLI_CONFIG)
+            config_root = os.path.join(root, "configs")
+            os.makedirs(os.path.join(config_root, "FineDiving"))
+
+            def write_config(**kw):
+                with open(os.path.join(config_root, "FineDiving", "FineDiving_small.json"),
+                          "w") as fp:
+                    json.dump(dict(raw, **kw), fp)
+
+            argv = ["--model", "FineDiving_small", "--config_root", config_root,
+                    "--data_root", data_root, "--no_wandb"]
+            write_config(store_mode="store")
+            try:
+                train_cli.main(argv)
+                fail("store mode did not exit")
+            except SystemExit as e:
+                if e.code not in (0, None):
+                    fail(f"store mode exited with {e.code}")
+            write_config(store_mode="load")
+            cfg = load_config("FineDiving_small", config_root)
+            k1_before = photometric.launches
+            first = train_cli.main(argv)
+            write_config(store_mode="load", num_epochs=CLI_RESUME_EPOCHS)
+            resumed = train_cli.main(argv + ["--resume"])
+            k1 = photometric.launches - k1_before
+            steps_per_epoch = cfg.dataset_len // cfg.batch_size
+            want_start = CLI_CONFIG["num_epochs"] * steps_per_epoch
+            got = (resumed["start_epoch"], resumed["start_batch"], resumed["start_step"],
+                   resumed["end_step"])
+            if (first["start_step"], first["end_step"]) != (0, want_start) or got != (
+                    CLI_CONFIG["num_epochs"], 0, want_start, CLI_RESUME_EPOCHS * steps_per_epoch):
+                fail(f"the CLI ran steps {first['start_step']}-{first['end_step']}, then "
+                     f"resumed at (epoch, batch, step) {got[:3]} and ended at step {got[3]}")
+            steps = resumed["end_step"]
+            if k1 < steps:
+                fail(f"the CLI launched the photometric kernel {k1} times in {steps} steps")
+
+            run_dir = cfg.save_dir
+            files = sorted(os.listdir(run_dir))
+            for name in ("checkpoint_best", "checkpoint_last", "train_meta.json", "loss.json",
+                         "results_test.json"):
+                if name not in files:
+                    fail(f"the CLI did not write {name}: {files}")
+            if not any(f.startswith("pred-test") for f in files):
+                fail(f"the CLI did not write pred-test*: {files}")
+            with open(os.path.join(run_dir, "train_meta.json")) as fp:
+                history = json.load(fp)["history"]
+            with open(os.path.join(run_dir, "results_test.json")) as fp:
+                results = json.load(fp)
+            if [r["epoch"] for r in history] != list(range(CLI_RESUME_EPOCHS)):
+                fail(f"the history holds epochs {[r['epoch'] for r in history]}")
+            losses = [r[k] for r in history for k in ("train", "val")]
+            maps = [r["val_mAP"] for r in history if r["val_mAP"] is not None]
+            maps += list(results.values())
+            if not all(map(math.isfinite, losses)):
+                fail(f"non-finite CLI loss: {losses}")
+            if len(maps) < 2 or not all(math.isfinite(m) and 0.0 <= m <= 1.0 for m in maps):
+                fail(f"CLI mAPs out of [0, 1]: {maps}")
+            for stats in (first, resumed):
+                _epoch_lines(cfg, stats, smi)
+            cache = resumed["frame_cache"]
+            log(f"[cli] losses {', '.join(f'{v:.4f}' for v in losses)}; val mAP "
+                f"{[r['val_mAP'] for r in history]}; test {results}; {steps} optimizer steps, "
+                f"{k1} photometric kernel launches; test evaluation {first['test_s'] * 1e3:.1f} "
+                f"and {resumed['test_s'] * 1e3:.1f} ms; frame cache hit rate "
+                f"{first['frame_cache']['hit_rate']:.1%} then {cache['hit_rate']:.1%} "
+                f"({cache['entries']} frames held); np.load {load.seconds:.2f} s in all; {smi}")
+            _loader_alone(torch, cfg, load, smi)
+
+            split = os.path.join(data_root, "finediving", "test.json")
+            with open(split) as fp:
+                n_frames = {m["video"]: m["num_frames"] for m in json.load(fp)}
+            outs = []
+            for i in range(2):
+                out = os.path.join(root, f"events{i}.json")
+                t0 = time.perf_counter()
+                predict_cli.main(["--model", "FineDiving_small", "--config_root", config_root,
+                                  "--data_root", data_root, "--split", split, "--out", out])
+                wall = time.perf_counter() - t0
+                with open(out) as fp:
+                    outs.append(json.load(fp))
+                log(f"[cli] predict over the test split: {wall * 1e3:.1f} ms; {smi}")
+            if outs[0] != outs[1]:
+                fail("two predict runs wrote different events")
+            events = [(p["video"], e) for p in outs[0] for e in p["events"]]
+            if not events:
+                fail("the predict CLI spotted no event")
+            for video, e in events:
+                if not (e["label"] in {f"class{i}" for i in range(1, 5)}
+                        and 0 <= e["frame"] < n_frames[video] and 0.0 <= e["score"] <= 1.0):
+                    fail(f"the predict CLI returned an invalid event {e}")
+            log(f"[cli] predict: {len(events)} events, the same in both runs")
+    finally:
+        frame_io.get_decoder = get_decoder
+
+
 def main() -> int:
     import torch
 
@@ -662,8 +920,12 @@ def main() -> int:
     serve_phase(torch, cfg, model)
     spot_phase(torch, cfg, model, smi)
     train_phase(torch, cfg, model, step)
+    acc_phase(torch, cfg, model, smi)
+    del model, step
+    torch.cuda.empty_cache()
+    cli_phase(torch, smi)
     k1["launches"] = photometric.launches
-    if k1["launches"] < TRAIN_STEPS:
+    if k1["launches"] < TRAIN_STEPS + 2 * ACC_STEPS:
         fail(f"the training steps launched the photometric kernel {k1['launches']} times")
 
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in (

@@ -1,0 +1,423 @@
+"""Training CLI of the port (port of tdeed_tpu/cli/train.py, on one card).
+
+Orchestration parity (ref: train_tdeed.py:90-315): seed -> config ->
+store/load clip plans -> model/optimizer -> epoch loop with best-checkpoint
+selection on val loss or val mAP -> restore best -> test-split inference +
+metrics. Around the reference: the threaded decode pipeline with pinned
+device prefetch, bf16 compute, micro-batches (``--acc_grad_iter``), and
+checkpoints with step-level resume.
+
+Usage:
+    python -m tdeed_tpu_torch.cli.train --model FineDiving_small
+        [--acc_grad_iter N] [--seed S] [--resume] [--no_wandb]
+        [--device cuda|cpu]
+
+It runs on the CUDA device unless ``--device cpu`` is given; without a
+card it raises, it never falls back. What the port does not carry yet is
+refused at startup, before any training, naming its ROADMAP.md item.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import random
+import sys
+import time
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from tdeed_tpu_torch.config import load_config
+from tdeed_tpu_torch.models.tdeed import check_supported, refuse
+
+EVAL_SPLITS = ["test"]  # ref: train_tdeed.py:30
+
+
+def get_args(argv=None) -> argparse.Namespace:
+    parser = argparse.ArgumentParser(description=__doc__)
+    parser.add_argument("--model", "-m", required=True,
+                        help="<DatasetPrefix>_<name>, resolves configs/<Prefix>/<model>.json")
+    parser.add_argument("--acc_grad_iter", type=int, default=1)
+    parser.add_argument("--seed", type=int, default=1)
+    parser.add_argument("--config_root", default="configs")
+    parser.add_argument("--data_root", default="data",
+                        help="dataset metadata root (train/val/test.json + class.txt)")
+    parser.add_argument("--resume", action="store_true",
+                        help="resume from checkpoint_last in save_dir")
+    parser.add_argument("--n_devices", type=int, default=None,
+                        help="more than 1 is refused: one card (ROADMAP.md, DDP)")
+    parser.add_argument("--no_wandb", action="store_true")
+    parser.add_argument(
+        "--profile_dir", default=None,
+        help="capture a torch.profiler trace of training steps 1-4 into this "
+             "directory (trace.json, for Perfetto or chrome://tracing)",
+    )
+    parser.add_argument("--distributed", action="store_true",
+                        help="refused: one card (ROADMAP.md, DDP)")
+    parser.add_argument("--device", default="cuda",
+                        help="where the model runs (default: the CUDA device)")
+    return parser.parse_args(argv)
+
+
+def seed_everything(seed: int) -> None:
+    random.seed(seed)
+    np.random.seed(seed)
+    torch.manual_seed(seed)
+
+
+def labels_root_for(data_root: str, dataset: str) -> Optional[str]:
+    """SN/SNB external label tree via labels_path.txt indirection
+    (ref: train_tdeed.py:102-107)."""
+    path = os.path.join(data_root, dataset, "labels_path.txt")
+    if os.path.exists(path):
+        with open(path) as fp:
+            return fp.read().strip()
+    return None
+
+
+def refuse_waiting(cfg, args) -> None:
+    """Raise NotImplementedError for what the port's training does not
+    carry yet, naming the ROADMAP.md item that brings it: the CLI's own
+    refusals, then the model's (check_supported)."""
+    if args.distributed:
+        refuse("--distributed (multi-process data parallelism)", "DDP")
+    if args.n_devices is not None and args.n_devices > 1:
+        refuse(f"--n_devices {args.n_devices} (data parallelism over cards)", "DDP")
+    if cfg.dataset in ("soccernet", "soccernetball"):
+        refuse(f"dataset {cfg.dataset!r} (its scorers and cli/evaluate_challenge.py)",
+               "SN/SNB slices")
+    if cfg.backbone_ckpt:
+        refuse("backbone_ckpt (an orbax backbone directory)",
+               "the rest of the CLIs: backbone_ckpt")
+    check_supported(cfg)
+
+
+def build_samplers(cfg, args, classes, decoder, cache=None):
+    """Store-or-load the clip plans and build train/val samplers
+    (ref: dataset/datasets.py:19-96). In store mode this stores the train
+    and val plans and exits 0, like the reference (ref:
+    train_tdeed.py:120-122)."""
+    from tdeed_tpu_torch.data.clips import load_plan, plan_clips, store_plan
+    from tdeed_tpu_torch.data.loader import ClipSampler
+    from tdeed_tpu_torch.data.registry import get_spec
+
+    spec = get_spec(cfg.dataset)
+    labels_root = labels_root_for(args.data_root, cfg.dataset)
+    plans = {}
+    for split in (cfg.train_split, cfg.val_split):
+        if cfg.store_mode == "store":
+            plan = plan_clips(
+                cfg.dataset,
+                os.path.join(args.data_root, cfg.dataset, f"{split}.json"),
+                cfg.frame_dir,
+                classes,
+                cfg.clip_len,
+                spec.train_stride,
+                spec.train_overlap,
+                cfg.radi_displacement,
+                labels_root=labels_root,
+            )
+            store_plan(plan, cfg.store_dir, cfg.clip_len, cfg.radi_displacement, split)
+            print(f"Stored {len(plan)} {cfg.dataset}/{split} clips -> {cfg.store_dir}")
+        else:
+            plan = load_plan(cfg.store_dir, cfg.clip_len, cfg.radi_displacement, split)
+        plans[split] = plan
+    if cfg.store_mode == "store":
+        print("Store mode done; rerun with store_mode='load'.")
+        sys.exit(0)
+
+    def sampler(plan, mixup):
+        return ClipSampler(plan, cfg.clip_len, spec.train_stride, cfg.radi_displacement,
+                           mixup, decoder=decoder, cache=cache)
+
+    return (sampler(plans[cfg.train_split], cfg.mixup),
+            sampler(plans[cfg.val_split], False), labels_root)
+
+
+def main(argv=None) -> Dict:
+    """Run the CLI. Returns what the run measured: the step it started
+    from and ended at, per epoch the optimizer steps and the seconds of
+    training, of waiting for batches inside it, of the val loss, the val
+    mAP and the checkpoint save, then the test evaluation's seconds and
+    the frame cache's statistics."""
+    args = get_args(argv)
+    seed_everything(args.seed)
+    cfg = load_config(args.model, args.config_root, acc_grad_iter=args.acc_grad_iter)
+    refuse_waiting(cfg, args)
+
+    from tdeed_tpu_torch.checkpoint import BEST, LAST, CheckpointManager, save_state
+    from tdeed_tpu_torch.data import frames as frame_io
+    from tdeed_tpu_torch.data.loader import BatchLoader, FrameCache, device_prefetch
+    from tdeed_tpu_torch.data.registry import get_spec, load_classes
+    from tdeed_tpu_torch.infer.evaluate import evaluate
+    from tdeed_tpu_torch.infer.windows import VideoWindows
+    from tdeed_tpu_torch.models.tdeed import build_model
+    from tdeed_tpu_torch.train.schedule import make_optimizer
+    from tdeed_tpu_torch.train.step import make_predict_step, make_train_step, make_val_step
+    from tdeed_tpu_torch.utils.logging import MetricsLogger
+    from tdeed_tpu_torch.utils.profiling import trace
+
+    spec = get_spec(cfg.dataset)
+    classes = load_classes(os.path.join(args.data_root, cfg.dataset, "class.txt"))
+    assert len(classes) == cfg.num_classes, (len(classes), cfg.num_classes)
+    # Looked up through the module when the run starts, so a caller can put
+    # another reader in its place (a machine without cv2 or PIL).
+    decoder = frame_io.get_decoder(cfg.decoder)
+
+    # One decoded-frame LRU, shared by the train/val samplers AND the eval
+    # windows (same decoder; plans and eval windows overlap heavily).
+    frame_cache = (
+        FrameCache(cfg.decode_cache_mb << 20) if cfg.decode_cache_mb > 0 else None
+    )
+    train_sampler, val_sampler, labels_root = build_samplers(
+        cfg, args, classes, decoder, cache=frame_cache
+    )
+
+    # --- model / optimizer ---------------------------------------------
+    model = build_model(cfg, device=args.device)
+    device = next(model.parameters()).device
+    crop = cfg.crop_dim
+    steps_per_epoch = cfg.dataset_len // cfg.batch_size  # optimizer steps
+    opt, sched = make_optimizer(
+        model.parameters(),
+        cfg.learning_rate,
+        warmup_steps=cfg.warm_up_epochs * steps_per_epoch,
+        cosine_steps=(cfg.num_epochs - cfg.warm_up_epochs) * steps_per_epoch,
+    )
+    train_step = make_train_step(
+        model, opt, sched, crop_dim=crop, num_classes_bg=cfg.num_classes_bg,
+        mixup=cfg.mixup, radi_displacement=cfg.radi_displacement,
+        acc_grad_iter=cfg.acc_grad_iter, seed=args.seed + 7,
+    )
+    val_step = make_val_step(
+        model, crop_dim=crop, num_classes_bg=cfg.num_classes_bg,
+        radi_displacement=cfg.radi_displacement,
+    )
+    predict_step = make_predict_step(
+        model, crop_dim=crop, radi_displacement=cfg.radi_displacement
+    )
+
+    def predict_fn(frames, hflip=False):
+        return predict_step(frames, hflip)[1]
+
+    # --- data loaders ---------------------------------------------------
+    train_loader = BatchLoader(
+        train_sampler, cfg.batch_size, cfg.dataset_len,
+        num_workers=max(4, cfg.num_workers), seed=args.seed,
+    )
+    val_loader = BatchLoader(
+        val_sampler, cfg.batch_size, cfg.dataset_len // 4,  # ref: datasets.py:49
+        num_workers=max(4, cfg.num_workers), seed=args.seed + 100_000,
+    )
+    val_data_frames = None
+    if cfg.criterion == "map":
+        val_data_frames = VideoWindows(
+            cfg.dataset,
+            os.path.join(args.data_root, cfg.dataset, f"{cfg.val_split}.json"),
+            cfg.frame_dir,
+            cfg.clip_len,
+            overlap_len=0,
+            stride=spec.eval_stride,
+            labels_root=labels_root,
+            decoder=decoder,
+            cache=frame_cache,
+        )
+
+    ckpt = CheckpointManager(cfg.save_dir or os.path.join("checkpoints", cfg.model))
+    logger = MetricsLogger(ckpt.save_dir, cfg, enable_wandb=not args.no_wandb)
+
+    start_epoch = 0
+    resume_batch = 0
+    if not args.resume and not cfg.only_test:
+        # Fresh run in a reused save_dir: a stale best_criterion/history
+        # would suppress checkpoint_best for the whole run and the final
+        # eval would score the OLD weights.
+        ckpt.save_meta({"epoch": -1, "best_criterion": None, "history": []})
+    if args.resume:
+        train_step, start_epoch = ckpt.restore_last(train_step)
+        # Step-level resume: the step count places the loader (batch b of
+        # epoch e is a pure function of (seed, e, b)) and seeds the step's
+        # draws, so an interrupt-saved mid-epoch checkpoint continues from
+        # the exact next batch (the reference restarts from scratch).
+        steps_done = train_step.step
+        if steps_per_epoch > 0 and steps_done > 0:
+            start_epoch = steps_done // steps_per_epoch
+            resume_batch = steps_done % steps_per_epoch
+        print(f"Resumed at epoch {start_epoch}, batch {resume_batch} "
+              f"(step {steps_done})")
+    best = ckpt.load_meta().get("best_criterion") if args.resume else None
+    if best is None:
+        best = float("inf") if cfg.criterion == "loss" else 0.0
+
+    def placed(iterator):
+        # two batches in flight: decode/assembly and the host-to-device
+        # copies overlap device compute
+        return device_prefetch(iterator, device, depth=2)
+
+    profiled = {"done": args.profile_dir is None}
+    stats = {"start_epoch": start_epoch, "start_batch": resume_batch,
+             "start_step": train_step.step, "epochs": []}
+
+    def run_train_epoch(epoch: int, start_batch: int = 0):
+        """(mean loss, optimizer steps, seconds spent waiting for batches)."""
+        # Loss scalars stay on the device until the epoch ends: a float() per
+        # step would wait for the device and stall the prefetch.
+        losses = []
+        waited = 0.0
+        capture = None
+
+        def end_capture():
+            float(losses[-1])  # wait for the traced steps
+            capture.__exit__(None, None, None)
+            profiled["done"] = True
+            print(f"profiler trace -> {args.profile_dir}")
+
+        batches = placed(train_loader.epoch(epoch, start_batch=start_batch))
+        while True:
+            t0 = time.perf_counter()
+            batch = next(batches, None)
+            waited += time.perf_counter() - t0
+            if batch is None:
+                break
+            if not profiled["done"] and len(losses) == 1:  # skip the first step
+                capture = trace(args.profile_dir, device)
+                capture.__enter__()
+            losses.append(train_step(batch)["loss"])
+            if capture is not None and len(losses) == 5:
+                end_capture()
+                capture = None
+        if capture is not None:  # short epoch: close the span
+            end_capture()
+        if not losses:
+            return 0.0, 0, waited
+        return float(torch.stack(losses).mean()), len(losses), waited
+
+    def run_val_epoch(epoch: int) -> float:
+        losses = [val_step(batch)["loss"] for batch in placed(val_loader.epoch(epoch))]
+        if not losses:
+            return 0.0
+        return float(torch.stack(losses).mean())
+
+    def _train_epochs():
+        nonlocal best, resume_batch
+        for epoch in range(start_epoch, cfg.num_epochs):
+            t0 = time.time()
+            train_loss, n_steps, waited = run_train_epoch(epoch, start_batch=resume_batch)
+            resume_batch = 0
+            t1 = time.time()
+            val_loss = run_val_epoch(epoch)
+            t2 = time.time()
+
+            val_map = None
+            is_best = False
+            if cfg.criterion == "loss":
+                is_best = val_loss < best
+                if is_best:
+                    best = val_loss
+            elif epoch >= cfg.start_val_epoch:  # ref: train_tdeed.py:182-199
+                val_map = evaluate(
+                    predict_fn,
+                    val_data_frames,
+                    "VAL",
+                    classes,
+                    printed=False,
+                    test=False,
+                    augment=False,
+                    labels_root=labels_root,
+                )
+                is_best = val_map > best
+                if is_best:
+                    best = val_map
+            t3 = time.time()
+
+            record = {
+                "epoch": epoch,
+                "train": train_loss,
+                "val": val_loss,
+                "val_mAP": val_map,
+                "train_time": t1 - t0,
+                "val_time": t2 - t1,
+            }
+            logger.log_epoch(record)
+            print(
+                f"[epoch {epoch}] train {train_loss:.4f} val {val_loss:.4f}"
+                + (f" val_mAP {val_map:.4f}" if val_map is not None else "")
+                + (" *best*" if is_best else "")
+            )
+            ckpt.save_epoch(train_step, epoch, record, is_best, best)
+            t4 = time.time()
+            frames_per_s = cfg.batch_size * cfg.clip_len * n_steps / (t1 - t0)
+            print(f"[epoch {epoch}] {n_steps} optimizer steps in {t1 - t0:.3f} s "
+                  f"({frames_per_s:.0f} train frames/s with the loader, "
+                  f"{waited / (t1 - t0):.1%} of it waiting for batches); "
+                  f"val loss {t2 - t1:.3f} s, val mAP {t3 - t2:.3f} s, "
+                  f"checkpoint {t4 - t3:.3f} s")
+            stats["epochs"].append({
+                "epoch": epoch, "steps": n_steps, "train_s": t1 - t0,
+                "wait_s": waited, "val_loss_s": t2 - t1, "val_map_s": t3 - t2,
+                "save_s": t4 - t3,
+            })
+
+    if cfg.only_test and not os.path.exists(os.path.join(ckpt.save_dir, BEST)):
+        # Fail fast: only_test with no trained checkpoint would silently
+        # launch a full training run before the eval the user asked for.
+        raise SystemExit(f"only_test=True but no {BEST} under {ckpt.save_dir}")
+    if not cfg.only_test:
+        try:
+            _train_epochs()
+        except KeyboardInterrupt:
+            # Graceful interrupt: persist the in-flight state so --resume
+            # continues from here (the reference restarts from scratch).
+            print("interrupted: saving checkpoint_last for --resume")
+            save_state(os.path.join(ckpt.save_dir, LAST), train_step)
+            raise
+    stats["end_step"] = train_step.step
+
+    # --- test ----------------------------------------------------------
+    if os.path.exists(os.path.join(ckpt.save_dir, BEST)):
+        model.load_state_dict(ckpt.restore_best(), strict=True)
+    else:
+        # No epoch ever improved the criterion (e.g. num_epochs <
+        # start_val_epoch): evaluate the final state instead.
+        print("warning: no best checkpoint; evaluating final state")
+
+    t0 = time.time()
+    for split in EVAL_SPLITS:
+        split_path = os.path.join(args.data_root, cfg.dataset, f"{split}.json")
+        if not os.path.exists(split_path):
+            continue
+        data = VideoWindows(
+            cfg.dataset,
+            split_path,
+            cfg.frame_dir,
+            cfg.clip_len,
+            overlap_len=spec.eval_overlap_len(cfg.clip_len),
+            stride=spec.eval_stride,
+            labels_root=labels_root,
+            decoder=decoder,
+            cache=frame_cache,
+        )
+        maps, tols = evaluate(
+            predict_fn,
+            data,
+            split.upper(),
+            classes,
+            save_pred=os.path.join(ckpt.save_dir, f"pred-{split}"),
+            printed=True,
+            test=True,
+            augment=spec.hflip_tta,
+            labels_root=labels_root,
+        )
+        if maps is not None:
+            logger.log_test(split, maps, tols)
+    stats["test_s"] = time.time() - t0
+    stats["frame_cache"] = frame_cache.stats() if frame_cache is not None else None
+    logger.finish()
+    print("CORRECTLY FINISHED TRAINING AND INFERENCE")
+    return stats
+
+
+if __name__ == "__main__":
+    main()

@@ -1,13 +1,15 @@
 """Frame decoding: JPEG -> (H, W, 3) uint8 numpy, NHWC from the start.
 
-The port's own copy of ``get_decoder`` and ``load_window`` from
-``tdeed_tpu/data/frames.py`` (held equal by
-tests/test_torch_infer_copies.py). Backends, in preference order:
+The port's own copy of ``get_decoder``, ``load_clip`` and ``load_window``
+from ``tdeed_tpu/data/frames.py`` (held equal by
+tests/test_torch_infer_copies.py and tests/test_torch_train_copies.py).
+Backends, in preference order:
   * 'cv2' — OpenCV imread (libjpeg-turbo under the hood, releases the GIL);
   * 'pil' — Pillow fallback.
 The JAX package's first-party C++ decoder ('native') has no copy here yet:
 ``get_decoder('native')`` refuses, and 'auto' falls through to cv2, then
-PIL, as the JAX function does when the native library is missing.
+PIL, as the JAX function does when the native library is missing; for the
+same reason ``load_clip`` has no C++ batch path.
 """
 
 from __future__ import annotations
@@ -48,7 +50,8 @@ def _decode_pil(path: str) -> np.ndarray:
 
 def get_decoder(kind: str = "auto") -> Callable[[str], np.ndarray]:
     if kind == "native":
-        refuse("decoder='native' (the C++ libjpeg batch decoder)", "checkpoint and the CLIs")
+        refuse("decoder='native' (the C++ libjpeg batch decoder)",
+               "the rest of the CLIs: native decoder")
     if kind in ("auto", "cv2"):
         try:
             _get_cv2()
@@ -57,6 +60,109 @@ def get_decoder(kind: str = "auto") -> Callable[[str], np.ndarray]:
             if kind == "cv2":
                 raise
     return _decode_pil
+
+
+def _clip_frame_paths(paths: list, stride: int, pad: bool) -> List[Optional[str]]:
+    """Expand a stored clip record into per-slot file paths (None = pad)."""
+    base_path, start, pad_start, pad_end, ndigits, length = paths
+    n_real = length - pad_start - pad_end
+    out: List[Optional[str]] = [None] * pad_start
+    for j in range(n_real):
+        idx = start + j * stride
+        if ndigits > 0:
+            out.append(os.path.join(base_path, str(idx).zfill(ndigits) + ".jpg"))
+        else:
+            out.append(os.path.join(base_path, f"frame{idx}.jpg"))
+    if pad:
+        out.extend([None] * pad_end)
+    return out
+
+
+def load_clip(
+    paths: list,
+    stride: int,
+    decoder: Callable[[str], np.ndarray],
+    pad: bool = True,
+    cache=None,
+) -> np.ndarray:
+    """Decode a stored clip record into (T, H, W, 3) uint8.
+
+    paths = [base_path, found_start, pad_start, pad_end, ndigits, length]
+    (the reference pickle format; ref: dataset/frame.py:355-382). Start is
+    always zero-padded; end only when pad=True.
+
+    cache: optional ``tdeed_tpu_torch.data.loader.FrameCache`` — decoded
+    frames are served from / inserted into the LRU; only misses decode.
+    Falls back to the uncached path on any inconsistency (mid-clip
+    resolution change, corrupt frame), so behavior is bit-identical with
+    or without a cache.
+    """
+    slot_paths = _clip_frame_paths(paths, stride, pad)
+    first_real = next((p for p in slot_paths if p is not None), None)
+    assert first_real is not None, paths
+
+    if cache is not None:
+        out = _load_clip_cached(slot_paths, decoder, cache)
+        if out is not None:
+            return out
+
+    frames: List[np.ndarray] = []
+    for p in slot_paths:
+        if p is not None:
+            frames.append(decoder(p))
+    arr = np.stack(frames, axis=0)
+    pad_start = paths[2]
+    n_end = len(slot_paths) - pad_start - len(frames)
+    if pad_start > 0 or n_end > 0:
+        arr = np.pad(arr, ((pad_start, n_end), (0, 0), (0, 0), (0, 0)))
+    return arr
+
+
+def _load_clip_cached(
+    slot_paths: List[Optional[str]],
+    decoder: Callable[[str], np.ndarray],
+    cache,
+) -> Optional[np.ndarray]:
+    """Assemble a clip from the decoded-frame LRU, decoding only misses.
+
+    Returns None to make the caller fall back to the uncached path (shape
+    inconsistency or a decode failure, where the per-frame decoder raises
+    the proper error). Output rows are always freshly allocated or copied —
+    the returned clip never aliases cache storage.
+    """
+    hits = [cache.get(p) if p is not None else None for p in slot_paths]
+    miss = [
+        p if (p is not None and h is None) else None
+        for p, h in zip(slot_paths, hits)
+    ]
+    shape = next((h.shape for h in hits if h is not None), None)
+    if any(h is not None and h.shape != shape for h in hits):
+        return None
+
+    n = len(slot_paths)
+    decoded = {}
+    for p in miss:
+        if p is None:
+            continue
+        try:
+            d = decoder(p)
+        except Exception:
+            return None
+        if shape is None:
+            shape = d.shape
+        elif d.shape != shape:
+            return None
+        decoded[p] = d
+    if shape is None:
+        return None  # all-pad clip: let the uncached path handle it
+    out = np.zeros((n,) + tuple(shape), np.uint8)
+    for i, (p, hit) in enumerate(zip(slot_paths, hits)):
+        if hit is not None:
+            out[i] = hit
+        elif p is not None:
+            out[i] = decoded[p]
+            cache.put(p, decoded[p])
+    return out
 
 
 def load_window(

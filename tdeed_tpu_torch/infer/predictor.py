@@ -24,9 +24,11 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from tdeed_tpu_torch.data.frames import get_decoder, load_window
+from tdeed_tpu_torch.config import load_config
+from tdeed_tpu_torch.data import frames as frame_io
+from tdeed_tpu_torch.data.frames import load_window
 from tdeed_tpu_torch.data.loader import FrameCache
-from tdeed_tpu_torch.data.registry import DEFAULT_PAD_LEN, FPS_SN, get_spec
+from tdeed_tpu_torch.data.registry import DEFAULT_PAD_LEN, FPS_SN, get_spec, load_classes
 from tdeed_tpu_torch.infer.evaluate import INFERENCE_BATCH_SIZE, predict_windows
 from tdeed_tpu_torch.infer.nms import (
     non_maximum_suppression,
@@ -78,7 +80,8 @@ class SpottingPredictor:
     """Event spotting over frame directories with a persistent model.
 
     Args:
-      cfg: TDEEDConfig (tdeed_tpu_torch.config).
+      cfg: TDEEDConfig (tdeed_tpu_torch.config), or use ``from_run`` to
+        load config + best checkpoint.
       state_dict: the model's weights, as ``TDEED.state_dict()`` names them
         (``from_jax_params`` takes the JAX package's trees instead).
       classes: {name: id} with ids 1..N (0 = background).
@@ -101,7 +104,9 @@ class SpottingPredictor:
         self.classes = classes
         self.classes_inv = {v: k for k, v in classes.items()}
         self.batch_size = batch_size
-        self.decoder = get_decoder(cfg.decoder)
+        # looked up through the module, so a caller can put another reader
+        # in its place (a machine without cv2 or PIL)
+        self.decoder = frame_io.get_decoder(cfg.decoder)
         # Decoded-frame LRU: serving windows overlap ~75%
         # (spec.eval_overlap_len), so the cache serves most repeat decodes
         # from memory (cfg.decode_cache_mb, 0 = off).
@@ -130,9 +135,17 @@ class SpottingPredictor:
     @classmethod
     def from_run(cls, model_name: str, config_root: str = "configs",
                  data_root: str = "data", **kw) -> "SpottingPredictor":
-        """The JAX class restores a finished run's orbax checkpoint here,
-        which only JAX reads; the port has no checkpoints yet."""
-        refuse("SpottingPredictor.from_run (a run's checkpoint)", "checkpoint and the CLIs")
+        """Load config + class map + best checkpoint of a finished run of
+        the port's training CLI (cli/train.py), on ``device`` ("cuda"
+        unless the caller passes ``device="cpu"``)."""
+        from tdeed_tpu_torch.checkpoint import CheckpointManager
+
+        cfg = load_config(model_name, config_root)
+        classes = load_classes(os.path.join(data_root, cfg.dataset, "class.txt"))
+        if cfg.pretrain is not None:
+            refuse("two_heads", "FC2 double head")
+        ckpt = CheckpointManager(cfg.save_dir or os.path.join("checkpoints", cfg.model))
+        return cls(cfg, ckpt.restore_best(), classes, **kw)
 
     # -- inference --------------------------------------------------------
 

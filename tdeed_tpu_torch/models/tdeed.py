@@ -96,9 +96,7 @@ def check_supported(cfg) -> None:
     if cfg.fuse_entry or getattr(cfg, "fuse_shift", False):
         refuse("fuse_entry/fuse_shift", "not to port: the fused_block custom-VJP family")
     if cfg.checkpoint_backbone:
-        refuse("checkpoint_backbone", "checkpoint and the CLIs (checkpoint_backbone)")
-    if cfg.acc_grad_iter != 1:
-        refuse(f"acc_grad_iter={cfg.acc_grad_iter}", "acc_grad_iter scan")
+        refuse("checkpoint_backbone", "the rest of the CLIs: checkpoint_backbone")
     if cfg.pretrain is not None:
         refuse("joint pretraining (two heads)", "FC2 double head")
     if cfg.dtype not in _DTYPES:

@@ -5,19 +5,27 @@ bf16) -> fused photometric kernel -> model forward in the config's dtype
 with fp32 parameters -> weighted CE + displacement MSE -> backward ->
 AdamW + schedule step (ref: model/model.py:193-332).
 
+With ``acc_grad_iter`` > 1 the batch is split into that many micro-batches
+of B/acc_grad_iter clips; each gets its own draws, a train-mode forward
+(BN running statistics update once per micro-batch) and a backward of its
+loss over acc_grad_iter, so the gradients and the loss are means over
+micro-batches; then one AdamW step and one schedule step
+(tdeed_tpu/train/step.py:170-190).
+
 Randomness is injected, not reproduced: ``TrainStep.draw`` makes every
-random value of a step — crop offset, mixup weights, the (B, 16) augment
-parameters (slot 14 the flip gate) and the dropout masks — from the step's
-own torch.Generator (and a numpy Generator for the Beta draws), and the
-step also takes them from outside, so tests can hand the same values to
-the JAX package. ``acc_grad_iter > 1``, the double head and the
-validation step are not ported yet (ROADMAP.md).
+random value of a step — per micro-batch, the crop offset, mixup weights,
+the (b, 16) augment parameters (slot 14 the flip gate) and the dropout
+masks — and the step also takes them from outside, so tests can hand the
+same values to the JAX package. The draws of step t come from generators
+seeded with (seed, t) alone, as the JAX step folds the step into its key
+(:164): a run resumed from a checkpoint at step t draws what the
+uninterrupted run drew. The double head is not ported yet (ROADMAP.md).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -38,12 +46,12 @@ from tdeed_tpu_torch.utils.profiling import annotate
 
 @dataclass
 class StepDraws:
-    """Every random value one training step uses."""
+    """Every random value one micro-batch of b clips uses."""
 
-    crop: Optional[Tuple[int, int]]  # batch-wide crop offset (i, j)
-    lam: Optional[torch.Tensor]  # (B,) fp32 mixup weights, mixup only
-    aug: torch.Tensor  # (B, 16) fp32 photometric params, flip in slot 14
-    dropout_keep: Dict[str, torch.Tensor]  # head name -> (B, T, D) bool
+    crop: Optional[Tuple[int, int]]  # micro-batch-wide crop offset (i, j)
+    lam: Optional[torch.Tensor]  # (b,) fp32 mixup weights, mixup only
+    aug: torch.Tensor  # (b, 16) fp32 photometric params, flip in slot 14
+    dropout_keep: Dict[str, torch.Tensor]  # head name -> (b, T, D) bool
 
 
 def _device_of(model: torch.nn.Module) -> torch.device:
@@ -55,10 +63,12 @@ def _on(x, device):
 
 
 class TrainStep:
-    """Callable training step; see make_train_step."""
+    """Callable training step; see make_train_step. ``step`` counts the
+    optimizer steps taken; ``state_dict`` and ``load_state_dict`` carry the
+    model, optimizer, schedule and that count (checkpoint.py)."""
 
     def __init__(self, model, optimizer, scheduler, *, crop_dim, num_classes_bg,
-                 mixup, radi_displacement, fg_weight=5.0, seed=0):
+                 mixup, radi_displacement, acc_grad_iter=1, fg_weight=5.0, seed=0):
         self.model = model
         self.optimizer = optimizer
         self.scheduler = scheduler
@@ -66,38 +76,59 @@ class TrainStep:
         self.num_classes_bg = num_classes_bg
         self.mixup = mixup
         self.radi_displacement = radi_displacement
+        self.acc_grad_iter = acc_grad_iter
         self.weights = class_weights(num_classes_bg, fg_weight, _device_of(model))
-        self.generator = torch.Generator().manual_seed(seed)
-        self.np_rng = np.random.default_rng(seed)
+        self.seed = seed
+        self.step = 0
 
-    def draw(self, batch) -> StepDraws:
-        """Draw one step's random values for ``batch`` on the host."""
-        b, t, h, w, _ = batch["frame"].shape
-        crop = augment.sample_crop_offset(self.generator, (h, w), self.crop_dim)
-        lam = None
-        if self.mixup:
-            lam = torch.from_numpy(augment.sample_mixup_lam(self.np_rng, b))
-        aug = sample_params(self.generator, b)
+    def state_dict(self) -> Dict:
+        return {
+            "model": self.model.state_dict(),
+            "optimizer": self.optimizer.state_dict(),
+            "scheduler": self.scheduler.state_dict(),
+            "step": self.step,
+        }
+
+    def load_state_dict(self, state: Dict) -> None:
+        self.model.load_state_dict(state["model"], strict=True)
+        self.optimizer.load_state_dict(state["optimizer"])
+        self.scheduler.load_state_dict(state["scheduler"])
+        self.step = int(state["step"])
+
+    def _micro_size(self, batch) -> int:
+        b = batch["frame"].shape[0]
+        if b % self.acc_grad_iter:
+            raise ValueError(f"batch {b} does not split into {self.acc_grad_iter} micro-batches")
+        return b // self.acc_grad_iter
+
+    def draw(self, batch) -> List[StepDraws]:
+        """Draw this step's random values for ``batch`` on the host: one
+        StepDraws per micro-batch, in order, from generators seeded with
+        (seed, step)."""
+        b = self._micro_size(batch)
+        _, t, h, w, _ = batch["frame"].shape
+        seq = np.random.SeedSequence([self.seed, self.step])
+        generator = torch.Generator().manual_seed(int(seq.generate_state(1, np.uint64)[0]))
+        np_rng = np.random.default_rng(seq)
         heads = ["pred_fine"] + (["pred_displ"] if self.radi_displacement > 0 else [])
         d = self.model.feat_dim
-        keep = {
-            name: torch.rand(b, t, d, generator=self.generator) >= DROPOUT_RATE
-            for name in heads
-        }
-        return StepDraws(crop, lam, aug, keep)
+        draws = []
+        for _ in range(self.acc_grad_iter):
+            crop = augment.sample_crop_offset(generator, (h, w), self.crop_dim)
+            lam = None
+            if self.mixup:
+                lam = torch.from_numpy(augment.sample_mixup_lam(np_rng, b))
+            aug = sample_params(generator, b)
+            keep = {
+                name: torch.rand(b, t, d, generator=generator) >= DROPOUT_RATE
+                for name in heads
+            }
+            draws.append(StepDraws(crop, lam, aug, keep))
+        return draws
 
-    def __call__(self, batch, draws: Optional[StepDraws] = None) -> Dict[str, torch.Tensor]:
-        """One optimizer step on ``batch`` (dict of (B, T, H, W, 3) uint8
-        'frame', (B, T) int 'label', optional 'labelD', and with mixup
-        'frame2'/'label2'/'labelD2'; tensors or numpy arrays). Returns
-        {'loss': detached fp32 scalar}."""
-        model = self.model
-        dev = _device_of(model)
-        if draws is None:
-            draws = self.draw(batch)
-        model.train()
-
-        # One crop offset for the whole batch and a pointwise blend, so
+    def _loss(self, batch, draws: StepDraws, dev) -> torch.Tensor:
+        """Train-mode loss of one micro-batch."""
+        # One crop offset for the whole micro-batch and a pointwise blend, so
         # crop-then-blend equals blend-then-crop; cropping first blends
         # fewer pixels (tdeed_tpu/train/step.py:92-101).
         frames = augment.random_crop_batch(
@@ -118,7 +149,7 @@ class TrainStep:
                 )
         x = train_preprocess(frames, draws.aug.to(dev, non_blocking=True))
         keep = {k: v.to(dev, non_blocking=True) for k, v in draws.dropout_keep.items()}
-        out = model(x, dropout_keep=keep)
+        out = self.model(x, dropout_keep=keep)
 
         logits = out["logits"]
         c = logits.shape[-1]
@@ -132,12 +163,34 @@ class TrainStep:
             )
         if self.radi_displacement > 0 and label_d is not None:
             loss = loss + displacement_mse(out["displ"], label_d)
+        return loss
 
+    def __call__(self, batch, draws: Optional[Sequence[StepDraws]] = None
+                 ) -> Dict[str, torch.Tensor]:
+        """One optimizer step on ``batch`` (dict of (B, T, H, W, 3) uint8
+        'frame', (B, T) int 'label', optional 'labelD', and with mixup
+        'frame2'/'label2'/'labelD2'; tensors or numpy arrays), with
+        ``draws`` from ``draw`` (one per micro-batch) or drawn here.
+        Returns {'loss': the micro-batches' mean loss, a detached fp32
+        scalar on the model's device}."""
+        dev = _device_of(self.model)
+        b = self._micro_size(batch)
+        if draws is None:
+            draws = self.draw(batch)
+        if len(draws) != self.acc_grad_iter:
+            raise ValueError(f"{len(draws)} draws for {self.acc_grad_iter} micro-batches")
+        self.model.train()
         self.optimizer.zero_grad(set_to_none=True)
-        loss.backward()
+        total = None
+        for i, d in enumerate(draws):
+            micro = {k: v[i * b:(i + 1) * b] for k, v in batch.items()}
+            loss = self._loss(micro, d, dev)
+            (loss / self.acc_grad_iter).backward()
+            total = loss.detach() if total is None else total + loss.detach()
         self.optimizer.step()
         self.scheduler.step()
-        return {"loss": loss.detach()}
+        self.step += 1
+        return {"loss": total / self.acc_grad_iter}
 
 
 def make_train_step(
@@ -155,19 +208,50 @@ def make_train_step(
     seed: int = 0,
 ) -> TrainStep:
     """Build the training step over ``model`` with ``optimizer`` and
-    ``scheduler`` from train.schedule.make_optimizer. ``seed`` seeds the
-    step's generators. The step runs on the device of the model's
-    parameters (``build_model`` puts them on the CUDA device unless asked
-    for the CPU) and moves each batch there."""
-    if acc_grad_iter != 1:
-        refuse(f"acc_grad_iter={acc_grad_iter}", "acc_grad_iter scan")
+    ``scheduler`` from train.schedule.make_optimizer. ``seed`` and the
+    step count seed each step's draws. The batch (B divisible by
+    ``acc_grad_iter``) is taken as ``acc_grad_iter`` micro-batches. The
+    step runs on the device of the model's parameters (``build_model``
+    puts them on the CUDA device unless asked for the CPU) and moves each
+    batch there."""
     if two_heads is not None:
         refuse("two_heads", "FC2 double head")
     return TrainStep(
         model, optimizer, scheduler, crop_dim=crop_dim,
         num_classes_bg=num_classes_bg, mixup=mixup,
-        radi_displacement=radi_displacement, fg_weight=fg_weight, seed=seed,
+        radi_displacement=radi_displacement, acc_grad_iter=acc_grad_iter,
+        fg_weight=fg_weight, seed=seed,
     )
+
+
+def make_val_step(model, *, crop_dim: Optional[int], num_classes_bg: int,
+                  radi_displacement: int, fg_weight: float = 5.0, two_heads=None):
+    """Validation loss step (port of tdeed_tpu/train/step.py:205-247):
+    val_step(batch) -> {'loss', 'logits' (B, T, C+1), 'displ' (B, T) when
+    the head exists}, on the model's device, under no_grad. Eval
+    preprocessing (center crop, no augmentation), running BN statistics,
+    no dropout (ref: model/model.py:196-198)."""
+    if two_heads is not None:
+        refuse("two_heads", "FC2 double head")
+    weights = class_weights(num_classes_bg, fg_weight, _device_of(model))
+
+    @torch.no_grad()
+    def val_step(batch) -> Dict[str, torch.Tensor]:
+        model.eval()
+        dev = _device_of(model)
+        label = _on(batch["label"], dev).long()
+        out = model(augment.eval_preprocess(_on(batch["frame"], dev), crop_dim))
+        logits = out["logits"]
+        c = logits.shape[-1]
+        loss = weighted_ce_hard(logits.reshape(-1, c), label.reshape(-1), weights)
+        if radi_displacement > 0 and "labelD" in batch:
+            loss = loss + displacement_mse(out["displ"], _on(batch["labelD"], dev))
+        aux = {"loss": loss, "logits": logits}
+        if radi_displacement > 0:
+            aux["displ"] = out["displ"]
+        return aux
+
+    return val_step
 
 
 def make_predict_step(model, *, crop_dim: Optional[int], radi_displacement: int,

@@ -1,8 +1,11 @@
 """Guards of the PyTorch port: it never imports JAX, it builds the flagship
-config at full width, and it refuses the config values it does not carry
-yet with the ROADMAP.md item that brings them."""
+config at full width, its entry points run on CUDA unless asked for the
+CPU, and it refuses the config values it does not carry yet with the
+ROADMAP.md item that brings them."""
 
 import dataclasses
+import json
+import os
 import subprocess
 import sys
 from pathlib import Path
@@ -12,11 +15,15 @@ import pytest
 import torch
 
 from tdeed_tpu_torch import load_config
+from tdeed_tpu_torch.checkpoint import BEST, save_params
+from tdeed_tpu_torch.cli import predict as predict_cli
+from tdeed_tpu_torch.cli import train as train_cli
 from tdeed_tpu_torch.infer.predictor import SpottingPredictor
 from tdeed_tpu_torch.kernels.augment import _check
 from tdeed_tpu_torch.models.tdeed import build_model
 from tdeed_tpu_torch.train.schedule import make_optimizer
-from tdeed_tpu_torch.train.step import make_predict_step, make_train_step
+from tdeed_tpu_torch.train.step import make_predict_step, make_train_step, make_val_step
+from tests.fixtures import make_finediving_fixture, write_tiny_config
 
 REPO = Path(__file__).resolve().parents[1]
 
@@ -38,7 +45,7 @@ def test_importing_every_port_module_leaves_jax_out():
         [sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
         timeout=120, check=True,
     ).stdout.split(" ", 1)
-    assert int(out[0]) >= 39, out  # every module of the slice was imported
+    assert int(out[0]) >= 45, out  # every module of the slice was imported
     assert out[1].strip() == "[] []"
 
 
@@ -72,7 +79,7 @@ def test_build_model_defaults_to_cuda_and_never_falls_back(monkeypatch):
         ({"fuse_entry": True}, "fused_block"),
         ({"fuse_shift": True}, "fused_block"),
         ({"checkpoint_backbone": True}, "checkpoint_backbone"),
-        ({"acc_grad_iter": 2}, "acc_grad_iter scan"),
+        ({"feature_arch": "rny008_gsm"}, "rny008"),
         ({"feature_arch": "rny002_gsm"}, "GSM"),
         ({"feature_arch": "rny002"}, "plain rny002"),
         ({"feature_arch": "rny008_gsf"}, "rny008"),
@@ -93,10 +100,11 @@ def test_steps_refuse_what_the_port_lacks():
         build_model(cfg, two_heads=(5, 18), device="cpu")
     opt, sched = make_optimizer(model.parameters(), 1e-3, 1, 10)
     common = dict(crop_dim=32, num_classes_bg=5, mixup=True, radi_displacement=2)
-    with pytest.raises(NotImplementedError, match="acc_grad_iter scan"):
-        make_train_step(model, opt, sched, acc_grad_iter=2, **common)
     with pytest.raises(NotImplementedError, match="FC2 double head"):
         make_train_step(model, opt, sched, two_heads=(5, 18), **common)
+    with pytest.raises(NotImplementedError, match="FC2 double head"):
+        make_val_step(model, crop_dim=32, num_classes_bg=5, radi_displacement=2,
+                      two_heads=(5, 18))
     with pytest.raises(NotImplementedError, match="FC2 double head"):
         make_predict_step(model, crop_dim=32, radi_displacement=2, two_heads=(5, 18))
 
@@ -107,13 +115,14 @@ def test_steps_refuse_what_the_port_lacks():
         (lambda cfg: SpottingPredictor(cfg, {}, {"a": 1}, n_devices=2, device="cpu"), "DDP"),
         (lambda cfg: SpottingPredictor(cfg, {}, {"a": 1}, two_heads=(5, 18), device="cpu"),
          "FC2 double head"),
-        (lambda cfg: SpottingPredictor.from_run("FineDiving_small", str(REPO / "configs")),
-         "checkpoint and the CLIs"),
+        (lambda cfg: SpottingPredictor(dataclasses.replace(cfg, checkpoint_backbone=True), {},
+                                       {"a": 1}, device="cpu"),
+         "checkpoint_backbone"),
         (lambda cfg: SpottingPredictor(dataclasses.replace(cfg, decoder="native"), {}, {"a": 1},
                                        device="cpu"),
-         "checkpoint and the CLIs"),
+         "native decoder"),
     ],
-    ids=["n_devices", "two_heads", "from_run", "native-decoder"],
+    ids=["n_devices", "two_heads", "checkpoint_backbone", "native-decoder"],
 )
 def test_predictor_refuses_what_the_port_lacks(make, item):
     cfg = load_config("FineDiving_small", config_root=str(REPO / "configs"), clip_len=8)
@@ -127,6 +136,63 @@ def test_predictor_defaults_to_cuda_and_never_falls_back(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         SpottingPredictor(cfg, {}, {"a": 1})
+
+
+def _flagship_config(root, **override):
+    """configs/FineDiving/FineDiving_small.json under ``root``, its paths
+    moved there and ``override`` applied; returns the config root."""
+    with open(REPO / "configs" / "FineDiving" / "FineDiving_small.json") as fp:
+        raw = json.load(fp)
+    raw.update(frame_dir=str(root / "frames"), save_dir=str(root / "save"),
+               store_dir=str(root / "store"), **override)
+    os.makedirs(root / "configs" / "FineDiving")
+    with open(root / "configs" / "FineDiving" / "FineDiving_small.json", "w") as fp:
+        json.dump(raw, fp)
+    return str(root / "configs")
+
+
+@pytest.mark.parametrize(
+    "argv,override,item",
+    [
+        (["--n_devices", "2"], {}, "DDP"),
+        (["--distributed"], {}, "DDP"),
+        ([], {"backbone_ckpt": "/pretrained/rny002"}, "backbone_ckpt"),
+        ([], {"dataset": "soccernet"}, "SN/SNB slices"),
+    ],
+    ids=["n_devices", "distributed", "backbone_ckpt", "soccernet"],
+)
+def test_train_cli_refuses_what_the_port_lacks_at_startup(tmp_path, argv, override, item):
+    """Before it reads a plan or writes anything."""
+    config_root = _flagship_config(tmp_path, **override)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md") as err:
+        train_cli.main(["--model", "FineDiving_small", "--config_root", config_root,
+                        "--data_root", str(tmp_path / "data"), "--no_wandb", "--device", "cpu",
+                        *argv])
+    assert item in str(err.value)
+    assert sorted(os.listdir(tmp_path)) == ["configs"]
+
+
+@pytest.mark.parametrize("cli", ["train", "predict"])
+def test_clis_raise_without_cuda_and_never_fall_back(tmp_path, monkeypatch, cli):
+    """No --device: the CUDA device, and without one the RuntimeError of
+    build_model (after train's store mode, which needs no device)."""
+    fx = make_finediving_fixture(str(tmp_path), num_videos=1, num_frames=12, size=16)
+    config_root = write_tiny_config(str(tmp_path), fx, store_mode="store")
+    argv = ["--model", "FineDiving_tiny", "--config_root", config_root,
+            "--data_root", fx["data_root"]]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    if cli == "train":
+        with pytest.raises(SystemExit):
+            train_cli.main(argv + ["--no_wandb"])
+        write_tiny_config(str(tmp_path), fx, store_mode="load")
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            train_cli.main(argv + ["--no_wandb"])
+    else:
+        cfg = load_config("FineDiving_tiny", config_root)
+        os.makedirs(cfg.save_dir)
+        save_params(os.path.join(cfg.save_dir, BEST), build_model(cfg, device="cpu"))
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            predict_cli.main(argv + ["--videos", "01__01"])
 
 
 def _frames(shape, dtype=torch.uint8):

@@ -80,9 +80,10 @@ def _inputs():
     return batch, draws
 
 
-def _jax_step(monkeypatch, batch, draws, mixup=True, variables=None):
-    """One JAX train step with the injected draws, from ``variables`` or a
-    fresh init; returns (variables, loss, state)."""
+def _jax_step(monkeypatch, batch, draws, mixup=True, variables=None, acc_grad_iter=1):
+    """One JAX train step with the injected draws (the same for every
+    micro-batch), from ``variables`` or a fresh init; returns (variables,
+    loss, state)."""
     i, j = draws["crop"]
     keep = {k: jnp.asarray(v) for k, v in draws["keep"].items()}
 
@@ -113,7 +114,7 @@ def _jax_step(monkeypatch, batch, draws, mixup=True, variables=None):
     state = TrainState.create(v["params"], v["batch_stats"], tx)
     step = jax.jit(jax_train_step(
         jm, tx, crop_dim=CROP, num_classes_bg=NC_BG, mixup=mixup,
-        radi_displacement=2, pallas_augment=True,
+        radi_displacement=2, pallas_augment=True, acc_grad_iter=acc_grad_iter,
     ))
     new, metrics = step(state, jax.tree.map(jnp.asarray, batch), jax.random.PRNGKey(1))
     return v, float(metrics["loss"]), new
@@ -140,9 +141,11 @@ def _jax_augmented(batch, draws, mixup=True):
     return torch.from_numpy(out).to(torch.bfloat16)
 
 
-def _port_step(variables, batch, draws, dtype, augmented=None, mixup=True):
-    """One port train step from the JAX weights; ``augmented`` replaces the
-    port's photometric kernel output. Returns (model, loss, gradients)."""
+def _port_step(variables, batch, draws, dtype, augmented=None, mixup=True, acc_grad_iter=1):
+    """One port train step from the JAX weights, with the same draws for
+    every micro-batch; ``augmented`` (one tensor per micro-batch) replaces
+    the port's photometric kernel output. Returns (model, loss,
+    gradients)."""
     pm = TDEED(N_CLASSES, T, dtype=dtype, **MODEL)
     sd = params_from_jax(variables["params"], variables["batch_stats"])
     if dtype == torch.float64:
@@ -152,7 +155,7 @@ def _port_step(variables, batch, draws, dtype, augmented=None, mixup=True):
     opt, sched = make_optimizer(pm.parameters(), LR, WARM, COS)
     step = make_train_step(
         pm, opt, sched, crop_dim=CROP, num_classes_bg=NC_BG, mixup=mixup,
-        radi_displacement=2,
+        radi_displacement=2, acc_grad_iter=acc_grad_iter,
     )
     d = StepDraws(
         draws["crop"], torch.from_numpy(draws["lam"]), torch.from_numpy(draws["aug"]),
@@ -160,8 +163,10 @@ def _port_step(variables, batch, draws, dtype, augmented=None, mixup=True):
     )
     with pytest.MonkeyPatch.context() as mp:
         if augmented is not None:
-            mp.setattr(port_step, "train_preprocess", lambda frames, params: augmented)
-        loss = float(step({k: torch.from_numpy(v) for k, v in batch.items()}, d)["loss"])
+            outs = iter(augmented)
+            mp.setattr(port_step, "train_preprocess", lambda frames, params: next(outs))
+        loss = float(step({k: torch.from_numpy(v) for k, v in batch.items()},
+                          [d] * acc_grad_iter)["loss"])
     grads = {n: opt.state[p]["exp_avg"] / 0.1 for n, p in pm.named_parameters()}
     return pm, loss, grads
 
@@ -176,7 +181,7 @@ def step0():
         port32=_port_step(variables, batch, draws, torch.float32),
         port64=_port_step(variables, batch, draws, torch.float64),
         same_aug=_port_step(variables, batch, draws, torch.float32,
-                            _jax_augmented(batch, draws)),
+                            [_jax_augmented(batch, draws)]),
     )
 
 
@@ -197,7 +202,7 @@ def step0_mixup_off(step0):
     with pytest.MonkeyPatch.context() as mp:
         _, jax_loss, _ = _jax_step(mp, batch, draws, mixup=False, variables=step0["variables"])
     augmented = _jax_augmented(batch, draws, mixup=False)
-    port = _port_step(step0["variables"], batch, draws, torch.float32, augmented, mixup=False)
+    port = _port_step(step0["variables"], batch, draws, torch.float32, [augmented], mixup=False)
     return jax_loss, port[1]
 
 

@@ -51,10 +51,27 @@ Phases, each fatal on failure:
      losses and mAPs are checked; the photometric kernel must launch at
      least once per optimizer step. The CLI's loader is also timed alone
      (cold and warm frame cache, on the host and onto the card).
+  8. snb: the SoccerNet Ball challenge path at full width: the training CLI
+     over configs/SoccerNetBall/SoccerNetBall_challenge2.json (rny008_gsf,
+     the FC2 double head for joint training with SoccerNet, batch 2 x clip
+     100 of full 448x796 frames, mixup, bf16, displacement radius 4) with
+     only its paths, store mode and epochs changed (SNB_CONFIG), over
+     synthetic games (SoccerNet Ball: 1 train, 1 val, the 2 test games the
+     challenge scorer names and 1 challenge game of SNB_GAME_FRAMES frames;
+     SoccerNet: 1 train and 1 val game of two halves), np.save'd under the
+     .jpg names: store mode, 2 epochs of 3 optimizer steps with val mAP and
+     checkpoint_best, the test tail through evaluate_snb; then the
+     challenge CLI (tdeed_tpu_torch.cli.evaluate_challenge), which must
+     write the challenge game's results_spotting.json. The photometric
+     kernel must launch once per micro-batch; one step's launch, at (2,
+     100, 448, 796, 3) bf16, is held against the plain chain and timed.
+     Then the same step alone, with its batch on the card: step times and
+     peak memory.
 
 The line before the last is a JSON object with each kernel's route, the
-TPU kernel it replaces, its launches on its path (phases 5-7 for the
-photometric kernel, the probe tool's run for the probe kernels), its
+TPU kernel it replaces, its launches on its paths (phases 5-7 and phase
+8 for the photometric kernel, each counted from 0, and their sum; the
+probe tool's run for the probe kernels), its
 largest error against the plain version, its time, the plain version's,
 the one PyTorch call's that computes the same function (null where there
 is none) and the card's bound for the same work; the last line is
@@ -67,6 +84,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -95,6 +113,20 @@ CLI_CONFIG = dict(epoch_num_frames=4800, num_epochs=2, warm_up_epochs=1, start_v
 CLI_RESUME_EPOCHS = 3
 SPOT_FRAMES = 600  # the video spot() runs over; evaluate() adds one of EVAL_FRAMES
 EVAL_FRAMES = 300
+SNB_FRAME = (448, 796)  # SoccerNet Ball's full frames (crop_dim -1)
+SNB_GAME_FRAMES = 250  # frames of each synthetic SoccerNet Ball game
+SNB_EVENT_EVERY = 10  # source frames between two events: mAPs above 0 from random weights
+# SoccerNet trains at stride 12, so a clip of 100 spans 1,200 frames and a
+# half needs at least 1,082 for one clip; its halves hold SN_HALF_FRAMES
+# files, hard links to SN_POOL distinct frames
+SN_HALF_FRAMES = 1300
+SN_POOL = 32
+SN_EVENT_EVERY = 120  # one event every 10 strided frames
+# the keys of configs/SoccerNetBall/SoccerNetBall_challenge2.json phase 8
+# changes, besides the paths and store_mode: 600 frames = 6 clips = 3
+# optimizer steps of batch 2 an epoch; val mAP (the criterion) from epoch 1
+SNB_CONFIG = dict(epoch_num_frames=600, num_epochs=2, warm_up_epochs=1, start_val_epoch=1)
+SNB_ALONE_STEPS = 3  # the phase-8 step alone, batch on the card
 KERNEL_SOURCES = ("photometric", "probe")
 # fp32 operations per pixel of the photometric chain (each add, sub, mul,
 # div, min, max and floor once; the blur as two separable 5-tap passes), for
@@ -719,10 +751,10 @@ def _write_cli_dataset(root, rng):
     return frame_dir, data_root
 
 
-def _epoch_lines(cfg, stats, smi):
+def _epoch_lines(cfg, stats, smi, tag="cli"):
     for e in stats["epochs"]:
         frames = cfg.batch_size * cfg.clip_len * e["steps"]
-        log(f"[cli] epoch {e['epoch']}: {e['steps']} optimizer steps, train wall "
+        log(f"[{tag}] epoch {e['epoch']}: {e['steps']} optimizer steps, train wall "
             f"{e['train_s'] * 1e3:.1f} ms, {frames / e['train_s']:.0f} train frames/s "
             f"including the loader, waiting for batches {e['wait_s'] * 1e3:.1f} ms "
             f"({e['wait_s'] / e['train_s']:.1%} of the train wall); val loss "
@@ -894,6 +926,301 @@ def cli_phase(torch, smi):
         frame_io.get_decoder = get_decoder
 
 
+def _write_frame(path, frame):
+    import numpy as np
+
+    with open(path, "wb") as fp:
+        np.save(fp, frame)
+
+
+def _link(src, dst):
+    try:
+        os.link(src, dst)
+    except OSError:  # a file system without hard links
+        shutil.copyfile(src, dst)
+
+
+def _write_snb_dataset(root, rng):
+    """Synthetic SoccerNet Ball and SoccerNet games at full frames, in the
+    layouts the two datasets use, with their external label trees;
+    returns (frame_dir, data_root, snb_labels_root, {split: [games]})."""
+    import numpy as np
+
+    from tdeed_tpu_torch.metrics.soccernet import SNB_GAMES
+
+    h, w = SNB_FRAME
+    frame_dir = os.path.join(root, "frames")
+    data_root = os.path.join(root, "data")
+    labels = {}
+    for ds in ("soccernetball", "soccernet"):
+        os.makedirs(os.path.join(data_root, ds))
+        shutil.copyfile(REPO / "data" / ds / "class.txt",
+                        os.path.join(data_root, ds, "class.txt"))
+        labels[ds] = os.path.join(root, f"labels_{ds}")
+        with open(os.path.join(data_root, ds, "labels_path.txt"), "w") as fp:
+            fp.write(labels[ds])
+
+    def classes(ds):
+        with open(os.path.join(data_root, ds, "class.txt")) as fp:
+            return [line.strip() for line in fp if line.strip()]
+
+    def write_labels(ds, game, name, anns):
+        os.makedirs(os.path.join(labels[ds], game), exist_ok=True)
+        with open(os.path.join(labels[ds], game, name), "w") as fp:
+            json.dump({"annotations": anns}, fp)
+
+    def event(half, frame, label):
+        ms = frame * 40  # 25 fps
+        return {"gameTime": f"{half} - {ms // 60000:02d}:{ms // 1000 % 60:02d}",
+                "label": label, "position": str(ms)}
+
+    snb_classes = classes("soccernetball")
+    games = {"train": SNB_GAMES["train"][:1], "val": SNB_GAMES["val"][:1],
+             "test": SNB_GAMES["test"], "challenge": SNB_GAMES["challenge"][:1]}
+    for split, names in games.items():
+        for game in names:
+            path = os.path.join(frame_dir, game)
+            os.makedirs(path)
+            for i in range(SNB_GAME_FRAMES):
+                _write_frame(os.path.join(path, f"frame{i}.jpg"),
+                             rng.integers(0, 256, (h, w, 3), dtype=np.uint8))
+            if split != "challenge":
+                write_labels("soccernetball", game, "Labels-ball.json", [
+                    event(1, f, snb_classes[int(rng.integers(0, len(snb_classes)))])
+                    for f in range(SNB_EVENT_EVERY // 2, SNB_GAME_FRAMES, SNB_EVENT_EVERY)])
+        with open(os.path.join(data_root, "soccernetball", f"{split}.json"), "w") as fp:
+            json.dump([{"video": g, "num_frames": SNB_GAME_FRAMES} for g in names], fp)
+
+    sn_classes = classes("soccernet")
+    pool = os.path.join(root, "sn_pool")
+    os.makedirs(pool)
+    for i in range(SN_POOL):
+        _write_frame(os.path.join(pool, f"{i}.npy"),
+                     rng.integers(0, 256, (h, w, 3), dtype=np.uint8))
+    for split, game in (("train", "england_epl/2016-2017/synthetic train"),
+                        ("val", "england_epl/2016-2017/synthetic val")):
+        anns = []
+        for half in (1, 2):
+            path = os.path.join(frame_dir, game, f"half{half}")
+            os.makedirs(path)
+            for i in range(SN_HALF_FRAMES):
+                _link(os.path.join(pool, f"{int(rng.integers(0, SN_POOL))}.npy"),
+                      os.path.join(path, f"frame{i}.jpg"))
+            anns += [event(half, f, sn_classes[int(rng.integers(0, len(sn_classes)))])
+                     for f in range(SN_EVENT_EVERY // 2, SN_HALF_FRAMES, SN_EVENT_EVERY)]
+        write_labels("soccernet", game, "Labels-v2.json", anns)
+        with open(os.path.join(data_root, "soccernet", f"{split}.json"), "w") as fp:
+            json.dump([{"video": f"{game}/half{h_}", "num_frames": SN_HALF_FRAMES}
+                       for h_ in (1, 2)], fp)
+    return frame_dir, data_root, labels["soccernetball"], games
+
+
+def _snb_step_alone(torch, cfg, smi):
+    """The phase-8 training step with its batch already on the card: a
+    joint batch (one SoccerNet Ball clip, one SoccerNet clip) of full
+    uint8 frames, the step built as the training CLI builds it."""
+    from tdeed_tpu_torch.models.tdeed import build_model, two_heads_for
+    from tdeed_tpu_torch.train.schedule import make_optimizer
+    from tdeed_tpu_torch.train.step import make_train_step
+
+    torch.manual_seed(SEED)
+    two_heads = two_heads_for(cfg)
+    model = build_model(cfg, two_heads, device="cuda")
+    opt, sched = make_optimizer(model.parameters(), cfg.learning_rate, 3, 30)
+    step = make_train_step(
+        model, opt, sched, crop_dim=cfg.crop_dim, num_classes_bg=cfg.num_classes_bg,
+        mixup=cfg.mixup, radi_displacement=cfg.radi_displacement,
+        acc_grad_iter=cfg.acc_grad_iter, seed=SEED,
+    )
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 8)
+    b, t, (h, w) = cfg.batch_size, cfg.clip_len, SNB_FRAME
+
+    def frames():
+        return torch.randint(0, 256, (b, t, h, w, 3), generator=gen, device="cuda",
+                             dtype=torch.uint8)
+
+    def labels():
+        return torch.randint(0, min(two_heads), (b, t), generator=gen, device="cuda")
+
+    def displ():
+        r = cfg.radi_displacement
+        return torch.randint(-r, r + 1, (b, t), generator=gen, device="cuda").float()
+
+    batch = {"frame": frames(), "label": labels(), "labelD": displ(), "frame2": frames(),
+             "label2": labels(), "labelD2": displ(),
+             "dataset": torch.tensor([1, 2] * (b // 2), device="cuda")}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times, losses = [], []
+    for _ in range(SNB_ALONE_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(float(step(batch)["loss"]))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if not all(map(math.isfinite, losses)):
+        fail(f"non-finite SoccerNet Ball step loss: {losses}")
+    n = b * t
+    log(f"[snb] the step alone (batch {b} x clip {t} of {h}x{w} uint8 on the card, mixup, "
+        f"{cfg.dtype}, {cfg.feature_arch}, two heads {two_heads}): losses "
+        f"{', '.join(f'{v:.4f}' for v in losses)}; step times "
+        f"{', '.join(f'{x * 1e3:.1f}' for x in times)} ms; after the first "
+        f"{n * (len(times) - 1) / sum(times[1:]):.0f} frames/s; peak memory {peak:.2f} GiB; "
+        f"{sum(p.numel() for p in model.parameters())} params; {smi}")
+    return {"step_ms": [x * 1e3 for x in times], "peak_gib": peak}
+
+
+def snb_phase(torch, smi):
+    """Phase 8 (see the module docstring). Returns the photometric
+    kernel's entries for phase 8: its launches on the path, and the check
+    and times of one step's launch at the step's shape."""
+    import tempfile
+
+    import numpy as np
+
+    from tdeed_tpu_torch import load_config
+    from tdeed_tpu_torch.cli import evaluate_challenge
+    from tdeed_tpu_torch.cli import train as train_cli
+    from tdeed_tpu_torch.data import frames as frame_io
+    from tdeed_tpu_torch.kernels.augment import photometric, photometric_reference
+    from tdeed_tpu_torch.metrics import soccernet
+    from tdeed_tpu_torch.models.tdeed import two_heads_for
+    from tdeed_tpu_torch.train import step as step_mod
+
+    load = _TimedLoad()
+    get_decoder = frame_io.get_decoder
+    frame_io.get_decoder = lambda kind="auto": load
+    preprocess = step_mod.train_preprocess
+    seen = {}
+
+    def capture(frames, params):
+        out = preprocess(frames, params)
+        if "frames" not in seen:  # the first micro-batch of the run
+            seen.update(frames=frames.to(torch.bfloat16).clone(), params=params.clone(),
+                        out=out.clone())
+        return out
+
+    step_mod.train_preprocess = capture
+    os.makedirs(REPO / "build", exist_ok=True)
+    try:
+        with tempfile.TemporaryDirectory(dir=REPO / "build") as root:
+            t0 = time.perf_counter()
+            frame_dir, data_root, labels_root, games = _write_snb_dataset(
+                root, np.random.default_rng(SEED + 7))
+            log(f"[snb] dataset: SoccerNet Ball {sum(map(len, games.values()))} games of "
+                f"{SNB_GAME_FRAMES} {SNB_FRAME[0]}x{SNB_FRAME[1]} frames, SoccerNet 2 games of "
+                f"2 halves of {SN_HALF_FRAMES} frames ({SN_POOL} distinct), written in "
+                f"{time.perf_counter() - t0:.1f} s")
+            with open(os.path.join(CONFIGS, "SoccerNetBall",
+                                   "SoccerNetBall_challenge2.json")) as fp:
+                raw = json.load(fp)
+            raw.update(frame_dir=frame_dir, save_dir=os.path.join(root, "save"),
+                       store_dir=os.path.join(root, "store"), **SNB_CONFIG)
+            raw["pretrain"].update(frame_dir=frame_dir, store_dir=os.path.join(root, "store2"))
+            config_root = os.path.join(root, "configs")
+            os.makedirs(os.path.join(config_root, "SoccerNetBall"))
+            name = "SoccerNetBall_challenge2"
+
+            def write_config(**kw):
+                with open(os.path.join(config_root, "SoccerNetBall", f"{name}.json"),
+                          "w") as fp:
+                    json.dump(dict(raw, **kw), fp)
+
+            argv = ["--model", name, "--config_root", config_root, "--data_root", data_root]
+            write_config(store_mode="store")
+            try:
+                train_cli.main(argv + ["--no_wandb"])
+                fail("store mode did not exit")
+            except SystemExit as e:
+                if e.code not in (0, None):
+                    fail(f"store mode exited with {e.code}")
+            write_config(store_mode="load")
+            cfg = load_config(name, config_root)
+            photometric.launches = 0
+            torch.cuda.reset_peak_memory_stats()
+            stats = train_cli.main(argv + ["--no_wandb"])
+            t0 = time.perf_counter()
+            challenge = evaluate_challenge.main(argv)
+            challenge_s = time.perf_counter() - t0
+            launches = photometric.launches
+            peak = torch.cuda.max_memory_allocated() / 2**30
+
+            steps = stats["end_step"]
+            want_steps = SNB_CONFIG["num_epochs"] * (cfg.dataset_len // cfg.batch_size)
+            if steps != want_steps:
+                fail(f"the SoccerNet Ball run took {steps} optimizer steps, not {want_steps}")
+            if launches != steps * cfg.acc_grad_iter:
+                fail(f"phase 8 launched the photometric kernel {launches} times in "
+                     f"{steps} steps of {cfg.acc_grad_iter} micro-batch(es)")
+            run_dir = cfg.save_dir
+            for f in ("checkpoint_best", "checkpoint_last", "loss.json"):
+                if not os.path.exists(os.path.join(run_dir, f)):
+                    fail(f"the SoccerNet Ball run did not write {f}")
+            with open(os.path.join(run_dir, "loss.json")) as fp:
+                history = json.load(fp)
+            losses = [r[k] for r in history for k in ("train", "val")]
+            val_maps = [r["val_mAP"] for r in history if r["val_mAP"] is not None]
+            snb = stats["soccernet"]["test"]
+            maps = val_maps + [snb["a_mAP"]]
+            if not all(map(math.isfinite, losses)):
+                fail(f"non-finite SoccerNet Ball loss: {losses}")
+            if len(val_maps) != 1 or not all(math.isfinite(m) and 0.0 < m <= 1.0 for m in maps):
+                fail(f"SoccerNet Ball mAPs not in (0, 1]: val {val_maps}, test {snb['a_mAP']}")
+            preds_root = os.path.join(run_dir, "preds")
+            t0 = time.perf_counter()
+            again = soccernet.evaluate_snb(labels_root, preds_root, "test")
+            snb_s = time.perf_counter() - t0
+            if again["a_mAP"] != snb["a_mAP"]:
+                fail("evaluate_snb gave two results on the same predictions")
+            names = set(soccernet.SNB_EVENTS)
+            for game in games["challenge"]:
+                path = os.path.join(challenge["preds_root"], game, "results_spotting.json")
+                if not os.path.exists(path):
+                    fail(f"the challenge CLI did not write {path}")
+                with open(path) as fp:
+                    preds = json.load(fp)["predictions"]
+                if not preds:
+                    fail("the challenge CLI spotted no event")
+                for p in preds:
+                    if not (p["label"] in names and p["half"] == 1
+                            and 0 <= p["position"] < SNB_GAME_FRAMES * 40
+                            and 0.0 <= p["confidence"] <= 1.0):
+                        fail(f"the challenge CLI wrote an invalid prediction {p}")
+            _epoch_lines(cfg, stats, smi, "snb")
+            log(f"[snb] {cfg.feature_arch}, two heads {two_heads_for(cfg)}, batch "
+                f"{cfg.batch_size} x clip "
+                f"{cfg.clip_len} of {SNB_FRAME[0]}x{SNB_FRAME[1]}: losses "
+                f"{', '.join(f'{v:.4f}' for v in losses)}; val mAP {val_maps}; test "
+                f"(evaluate, SNMS) {stats['test_s'] * 1e3:.1f} ms with evaluate_snb a-mAP@1 "
+                f"{snb['a_mAP']:.4f}, evaluate_snb alone {snb_s * 1e3:.1f} ms; challenge CLI "
+                f"{challenge_s * 1e3:.1f} ms ({challenge['seconds'] * 1e3:.1f} ms of inference "
+                f"and writes), {len(preds)} predictions; {steps} optimizer steps, {launches} "
+                f"photometric kernel launches; peak memory over the run {peak:.2f} GiB; "
+                f"frame cache hit rate {stats['frame_cache']['hit_rate']:.1%}; "
+                f"np.load {load.seconds:.2f} s in all; {smi}")
+    finally:
+        frame_io.get_decoder = get_decoder
+        step_mod.train_preprocess = preprocess
+
+    frames, params, got = seen["frames"], seen["params"], seen["out"]
+    shape = tuple(frames.shape)
+    err = _check_close(torch, got, photometric_reference(frames, params),
+                       f"bf16 {shape}, the first phase-8 step's launch", BF16_ULP_AT_2)
+    ms = _time_ms(torch, lambda: photometric(frames, params), 20)
+    plain_ms = _time_ms(torch, lambda: photometric_reference(frames, params), 3)
+    bound_ms, bound_by = _k1_bound(params, 2 * frames.numel() * 2, shape)
+    log(f"[snb] photometric kernel at the step's {shape} bf16: {ms:.3f} ms, plain "
+        f"{plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by}), {bound_ms / ms:.0%} of it")
+    del seen, frames, params, got
+    torch.cuda.empty_cache()
+    alone = _snb_step_alone(torch, cfg, smi)
+    return {"launches": launches, "step_shape": list(shape), "step_max_abs_err": err,
+            "step_ms": ms, "step_plain_ms": plain_ms, "step_bound_ms": bound_ms,
+            "step_bound_by": bound_by, "train_step_ms": alone["step_ms"],
+            "train_peak_gib": alone["peak_gib"]}
+
+
 def main() -> int:
     import torch
 
@@ -924,9 +1251,17 @@ def main() -> int:
     del model, step
     torch.cuda.empty_cache()
     cli_phase(torch, smi)
-    k1["launches"] = photometric.launches
-    if k1["launches"] < TRAIN_STEPS + 2 * ACC_STEPS:
-        fail(f"the training steps launched the photometric kernel {k1['launches']} times")
+    flagship_launches = photometric.launches
+    if flagship_launches < TRAIN_STEPS + 2 * ACC_STEPS:
+        fail(f"the training steps launched the photometric kernel {flagship_launches} times")
+    torch.cuda.empty_cache()
+    snb = snb_phase(torch, smi)  # counts its own launches from 0
+    k1["launches"] = flagship_launches + snb.pop("launches")
+    k1["launches_by_path"] = {"phases 5-7 (FineDiving_small)": flagship_launches,
+                              "phase 8 (SoccerNetBall_challenge2)":
+                                  k1["launches"] - flagship_launches}
+    k1["max_abs_err"] = max(k1["max_abs_err"], snb["step_max_abs_err"])
+    k1.update({f"snb_{k}": v for k, v in snb.items()})
 
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in (
         "jax", "jaxlib", "flax", "optax", "tdeed_tpu"))

@@ -9,8 +9,10 @@ the JAX package's Pallas kernels is a hand-written CUDA kernel (csrc/),
 built with nvcc at first use. The JAX-free host modules are the port's own
 copies: ``config``, the dataset registry, frame reads and the frame cache
 (data/), window enumeration, NMS and the evaluation protocol (infer/), the
-tolerance mAP (metrics/) and the JSON writers (utils/io.py). On them sit
-sliding-window inference and serving, ``infer.predictor.SpottingPredictor``.
+tolerance mAP and the SoccerNet scorers (metrics/) and the JSON writers
+(utils/io.py). On them sit sliding-window inference and serving,
+``infer.predictor.SpottingPredictor``, and the CLIs (cli/: train, predict,
+evaluate_challenge).
 The port imports nothing of jax or of ``tdeed_tpu``; its entry points run
 on the CUDA device unless the caller asks for the CPU.
 """

@@ -4,7 +4,8 @@ run a model trained by ``tdeed_tpu_torch.cli.train`` on frame directories.
 Serving entry point with no reference counterpart: the reference can only
 score dataset splits through its evaluators; this spots events in any
 extracted video and writes an events JSON, building the model once for the
-whole batch of videos. It restores the run's ``checkpoint_best`` and runs
+whole batch of videos. It restores the run's ``checkpoint_best`` (a run
+trained with ``pretrain`` spots with the double head's head 1) and runs
 on the CUDA device unless ``--device cpu`` is given; without a card it
 raises, it never falls back. ``--n_devices`` above 1 is refused
 (ROADMAP.md, DDP).

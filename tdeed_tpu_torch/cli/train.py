@@ -5,7 +5,11 @@ store/load clip plans -> model/optimizer -> epoch loop with best-checkpoint
 selection on val loss or val mAP -> restore best -> test-split inference +
 metrics. Around the reference: the threaded decode pipeline with pinned
 device prefetch, bf16 compute, micro-batches (``--acc_grad_iter``), and
-checkpoints with step-level resume.
+checkpoints with step-level resume. A config with ``pretrain`` trains
+jointly on two datasets (SoccerNet Ball with SoccerNet): the FC2 double
+head, 50/50 tagged sampling and per-clip loss routing; SoccerNet's val mAP
+is ``metrics.soccernet.val_map_sn`` and the SoccerNet test tail adds the
+official scorers (``evaluate_sn_official``, ``evaluate_snb``).
 
 Usage:
     python -m tdeed_tpu_torch.cli.train --model FineDiving_small
@@ -85,55 +89,69 @@ def refuse_waiting(cfg, args) -> None:
         refuse("--distributed (multi-process data parallelism)", "DDP")
     if args.n_devices is not None and args.n_devices > 1:
         refuse(f"--n_devices {args.n_devices} (data parallelism over cards)", "DDP")
-    if cfg.dataset in ("soccernet", "soccernetball"):
-        refuse(f"dataset {cfg.dataset!r} (its scorers and cli/evaluate_challenge.py)",
-               "SN/SNB slices")
     if cfg.backbone_ckpt:
         refuse("backbone_ckpt (an orbax backbone directory)",
                "the rest of the CLIs: backbone_ckpt")
     check_supported(cfg)
 
 
-def build_samplers(cfg, args, classes, decoder, cache=None):
+def build_samplers(cfg, args, classes, decoder, classes2=None, cache=None):
     """Store-or-load the clip plans and build train/val samplers
     (ref: dataset/datasets.py:19-96). In store mode this stores the train
-    and val plans and exits 0, like the reference (ref:
-    train_tdeed.py:120-122)."""
+    and val plans, and the pretrain dataset's with ``pretrain``, and exits
+    0, like the reference (ref: train_tdeed.py:120-122). With
+    ``pretrain`` each sampler is a JointSampler over the two datasets."""
     from tdeed_tpu_torch.data.clips import load_plan, plan_clips, store_plan
-    from tdeed_tpu_torch.data.loader import ClipSampler
+    from tdeed_tpu_torch.data.loader import ClipSampler, JointSampler
     from tdeed_tpu_torch.data.registry import get_spec
 
-    spec = get_spec(cfg.dataset)
-    labels_root = labels_root_for(args.data_root, cfg.dataset)
-    plans = {}
-    for split in (cfg.train_split, cfg.val_split):
-        if cfg.store_mode == "store":
-            plan = plan_clips(
-                cfg.dataset,
-                os.path.join(args.data_root, cfg.dataset, f"{split}.json"),
-                cfg.frame_dir,
-                classes,
-                cfg.clip_len,
-                spec.train_stride,
-                spec.train_overlap,
-                cfg.radi_displacement,
-                labels_root=labels_root,
-            )
-            store_plan(plan, cfg.store_dir, cfg.clip_len, cfg.radi_displacement, split)
-            print(f"Stored {len(plan)} {cfg.dataset}/{split} clips -> {cfg.store_dir}")
-        else:
-            plan = load_plan(cfg.store_dir, cfg.clip_len, cfg.radi_displacement, split)
-        plans[split] = plan
+    def prepare(dataset, frame_dir, store_dir, cls, splits):
+        dspec = get_spec(dataset)
+        lroot = labels_root_for(args.data_root, dataset)
+        plans = {}
+        for split in splits:
+            if cfg.store_mode == "store":
+                plan = plan_clips(
+                    dataset,
+                    os.path.join(args.data_root, dataset, f"{split}.json"),
+                    frame_dir,
+                    cls,
+                    cfg.clip_len,
+                    dspec.train_stride,
+                    dspec.train_overlap,
+                    cfg.radi_displacement,
+                    labels_root=lroot,
+                )
+                store_plan(plan, store_dir, cfg.clip_len, cfg.radi_displacement, split)
+                print(f"Stored {len(plan)} {dataset}/{split} clips -> {store_dir}")
+            else:
+                plan = load_plan(store_dir, cfg.clip_len, cfg.radi_displacement, split)
+            plans[split] = plan
+        return plans
+
+    tr, va = cfg.train_split, cfg.val_split
+    plans = prepare(cfg.dataset, cfg.frame_dir, cfg.store_dir, classes, (tr, va))
+    plans2 = None
+    if cfg.pretrain is not None:
+        # The pretrain dataset (SN) has no challenge split variants; it
+        # always trains on its plain train/val metadata.
+        plans2 = prepare(cfg.pretrain.dataset, cfg.pretrain.frame_dir or cfg.frame_dir,
+                         cfg.pretrain.store_dir or cfg.store_dir, classes2, ("train", "val"))
     if cfg.store_mode == "store":
         print("Store mode done; rerun with store_mode='load'.")
         sys.exit(0)
 
-    def sampler(plan, mixup):
-        return ClipSampler(plan, cfg.clip_len, spec.train_stride, cfg.radi_displacement,
-                           mixup, decoder=decoder, cache=cache)
+    def sampler(plan, dataset, mixup):
+        return ClipSampler(plan, cfg.clip_len, get_spec(dataset).train_stride,
+                           cfg.radi_displacement, mixup, decoder=decoder, cache=cache)
 
-    return (sampler(plans[cfg.train_split], cfg.mixup),
-            sampler(plans[cfg.val_split], False), labels_root)
+    train = sampler(plans[tr], cfg.dataset, cfg.mixup)
+    val = sampler(plans[va], cfg.dataset, False)
+    if plans2 is not None:
+        # Joint 50/50 sampling with dataset tags (ref: dataset/frame.py:640-663)
+        train = JointSampler(train, sampler(plans2["train"], cfg.pretrain.dataset, cfg.mixup))
+        val = JointSampler(val, sampler(plans2["val"], cfg.pretrain.dataset, False))
+    return train, val, labels_root_for(args.data_root, cfg.dataset)
 
 
 def main(argv=None) -> Dict:
@@ -141,7 +159,8 @@ def main(argv=None) -> Dict:
     from and ended at, per epoch the optimizer steps and the seconds of
     training, of waiting for batches inside it, of the val loss, the val
     mAP and the checkpoint save, then the test evaluation's seconds and
-    the frame cache's statistics."""
+    the frame cache's statistics, and the SoccerNet scorers' results
+    ("soccernet", by split) where the dataset has them."""
     args = get_args(argv)
     seed_everything(args.seed)
     cfg = load_config(args.model, args.config_root, acc_grad_iter=args.acc_grad_iter)
@@ -153,7 +172,8 @@ def main(argv=None) -> Dict:
     from tdeed_tpu_torch.data.registry import get_spec, load_classes
     from tdeed_tpu_torch.infer.evaluate import evaluate
     from tdeed_tpu_torch.infer.windows import VideoWindows
-    from tdeed_tpu_torch.models.tdeed import build_model
+    from tdeed_tpu_torch.metrics import soccernet
+    from tdeed_tpu_torch.models.tdeed import build_model, two_heads_for
     from tdeed_tpu_torch.train.schedule import make_optimizer
     from tdeed_tpu_torch.train.step import make_predict_step, make_train_step, make_val_step
     from tdeed_tpu_torch.utils.logging import MetricsLogger
@@ -162,6 +182,11 @@ def main(argv=None) -> Dict:
     spec = get_spec(cfg.dataset)
     classes = load_classes(os.path.join(args.data_root, cfg.dataset, "class.txt"))
     assert len(classes) == cfg.num_classes, (len(classes), cfg.num_classes)
+    two_heads = two_heads_for(cfg)
+    classes2 = None
+    if cfg.pretrain is not None:
+        classes2 = load_classes(
+            os.path.join(args.data_root, cfg.pretrain.dataset, "class.txt"))
     # Looked up through the module when the run starts, so a caller can put
     # another reader in its place (a machine without cv2 or PIL).
     decoder = frame_io.get_decoder(cfg.decoder)
@@ -172,13 +197,21 @@ def main(argv=None) -> Dict:
         FrameCache(cfg.decode_cache_mb << 20) if cfg.decode_cache_mb > 0 else None
     )
     train_sampler, val_sampler, labels_root = build_samplers(
-        cfg, args, classes, decoder, cache=frame_cache
+        cfg, args, classes, decoder, classes2, cache=frame_cache
     )
 
     # --- model / optimizer ---------------------------------------------
-    model = build_model(cfg, device=args.device)
+    model = build_model(cfg, two_heads, device=args.device)
     device = next(model.parameters()).device
     crop = cfg.crop_dim
+    if crop is None and cfg.acc_grad_iter == 1:
+        # Full-frame (crop_dim -1) training, e.g. SoccerNet Ball at 796x448.
+        # The advice is the JAX package's, measured on a TPU, where the plain
+        # step fits memory only through rematerialization; on the card it is
+        # not measured.
+        print("hint: full-frame training with acc_grad_iter=1; on a TPU "
+              "--acc_grad_iter 2 measured 19% faster at this geometry "
+              "(see configs/README.md)")
     steps_per_epoch = cfg.dataset_len // cfg.batch_size  # optimizer steps
     opt, sched = make_optimizer(
         model.parameters(),
@@ -212,7 +245,7 @@ def main(argv=None) -> Dict:
         num_workers=max(4, cfg.num_workers), seed=args.seed + 100_000,
     )
     val_data_frames = None
-    if cfg.criterion == "map":
+    if cfg.criterion == "map" and cfg.dataset != "soccernet":
         val_data_frames = VideoWindows(
             cfg.dataset,
             os.path.join(args.data_root, cfg.dataset, f"{cfg.val_split}.json"),
@@ -317,16 +350,22 @@ def main(argv=None) -> Dict:
                 if is_best:
                     best = val_loss
             elif epoch >= cfg.start_val_epoch:  # ref: train_tdeed.py:182-199
-                val_map = evaluate(
-                    predict_fn,
-                    val_data_frames,
-                    "VAL",
-                    classes,
-                    printed=False,
-                    test=False,
-                    augment=False,
-                    labels_root=labels_root,
-                )
+                if cfg.dataset == "soccernet":
+                    val_map = soccernet.val_map_sn(
+                        predict_fn, cfg, args.data_root, labels_root,
+                        decoder=decoder, cache=frame_cache,
+                    )
+                else:
+                    val_map = evaluate(
+                        predict_fn,
+                        val_data_frames,
+                        "VAL",
+                        classes,
+                        printed=False,
+                        test=False,
+                        augment=False,
+                        labels_root=labels_root,
+                    )
                 is_best = val_map > best
                 if is_best:
                     best = val_map
@@ -384,6 +423,7 @@ def main(argv=None) -> Dict:
         print("warning: no best checkpoint; evaluating final state")
 
     t0 = time.time()
+    stats["soccernet"] = {}
     for split in EVAL_SPLITS:
         split_path = os.path.join(args.data_root, cfg.dataset, f"{split}.json")
         if not os.path.exists(split_path):
@@ -412,6 +452,12 @@ def main(argv=None) -> Dict:
         )
         if maps is not None:
             logger.log_test(split, maps, tols)
+        preds_root = os.path.join(ckpt.save_dir, "preds")
+        if cfg.dataset == "soccernet":
+            stats["soccernet"][split] = soccernet.evaluate_sn_official(
+                labels_root, preds_root, split)
+        elif cfg.dataset == "soccernetball":
+            stats["soccernet"][split] = soccernet.evaluate_snb(labels_root, preds_root, split)
     stats["test_s"] = time.time() - t0
     stats["frame_cache"] = frame_cache.stats() if frame_cache is not None else None
     logger.finish()

@@ -1,9 +1,10 @@
 """Host-side input pipeline: random clip sampling, threaded decode,
 batching, and asynchronous copies to the device.
 
-The port's own copy of ``FrameCache``, ``ClipSampler``, ``_collate`` and
-``BatchLoader`` from ``tdeed_tpu/data/loader.py`` (held equal by
-tests/test_torch_infer_copies.py and tests/test_torch_train_copies.py).
+The port's own copy of ``FrameCache``, ``ClipSampler``, ``JointSampler``,
+``_collate`` and ``BatchLoader`` from ``tdeed_tpu/data/loader.py`` (held
+equal by tests/test_torch_infer_copies.py, tests/test_torch_train_copies.py
+and tests/test_torch_soccernet_copies.py).
 A thread pool decodes (JPEG decode releases the GIL in every backend) and
 a bounded queue holds assembled batches, so decode and batch assembly
 overlap the device's work. Sampling ignores the index and draws a uniform
@@ -11,7 +12,6 @@ random stored clip, so the epoch length is virtual: dataset_len =
 epoch_num_frames // clip_len (ref: dataset/frame.py:210-253,
 dataset/datasets.py:22). ``device_prefetch`` is the port's own: pinned
 host copies, moved to the CUDA device without blocking the host.
-``JointSampler`` waits for the FC2 double head (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -153,6 +153,20 @@ class ClipSampler:
         if self.dataset_tag is not None:
             ret["dataset"] = np.int32(self.dataset_tag)
         return ret
+
+
+class JointSampler:
+    """50/50 two-dataset sampler tagging the source
+    (ref: dataset/frame.py:640-663)."""
+
+    def __init__(self, sampler1: ClipSampler, sampler2: ClipSampler):
+        self.s1 = sampler1
+        self.s2 = sampler2
+        self.s1.dataset_tag = 1
+        self.s2.dataset_tag = 2
+
+    def sample(self, rng: random.Random) -> Dict[str, np.ndarray]:
+        return (self.s1 if rng.random() < 0.5 else self.s2).sample(rng)
 
 
 def _collate(samples: List[Dict[str, np.ndarray]]) -> Dict[str, np.ndarray]:

@@ -34,7 +34,7 @@ from tdeed_tpu_torch.infer.nms import (
     non_maximum_suppression,
     soft_non_maximum_suppression,
 )
-from tdeed_tpu_torch.models.tdeed import build_model, refuse
+from tdeed_tpu_torch.models.tdeed import build_model, refuse, two_heads_for
 from tdeed_tpu_torch.train.step import make_predict_step
 from tdeed_tpu_torch.utils.jax_convert import params_from_jax
 
@@ -88,15 +88,15 @@ class SpottingPredictor:
       batch_size: windows per predict call without TTA (with TTA, 1).
       device: where the model runs; the CUDA device unless the caller asks
         for the CPU. Without a card, "cuda" raises RuntimeError.
-    ``two_heads`` and ``n_devices > 1`` are refused with the ROADMAP.md
-    item that brings them.
+      two_heads: (C1+1, C2+1) for a model trained with the FC2 double
+        head; events come from head 1 alone, whose classes ``classes``
+        names.
+    ``n_devices > 1`` is refused with the ROADMAP.md item that brings it.
     """
 
     def __init__(self, cfg, state_dict, classes: Dict[str, int], *,
                  batch_size: int = INFERENCE_BATCH_SIZE, device="cuda",
                  two_heads=None, n_devices: Optional[int] = None):
-        if two_heads is not None:
-            refuse("two_heads", "FC2 double head")
         if n_devices is not None and n_devices > 1:
             refuse(f"n_devices={n_devices} (serving over several devices)", "DDP")
         self.cfg = cfg
@@ -113,7 +113,7 @@ class SpottingPredictor:
         self._cache = None
         if getattr(cfg, "decode_cache_mb", 0) > 0:
             self._cache = FrameCache(cfg.decode_cache_mb << 20)
-        self.model = build_model(cfg, device=device)
+        self.model = build_model(cfg, two_heads, device=device)
         self.model.load_state_dict(state_dict, strict=True)
         self.model.eval()
         self.device = next(self.model.parameters()).device
@@ -137,15 +137,14 @@ class SpottingPredictor:
                  data_root: str = "data", **kw) -> "SpottingPredictor":
         """Load config + class map + best checkpoint of a finished run of
         the port's training CLI (cli/train.py), on ``device`` ("cuda"
-        unless the caller passes ``device="cpu"``)."""
+        unless the caller passes ``device="cpu"``); a config with
+        ``pretrain`` builds the double head and spots with head 1."""
         from tdeed_tpu_torch.checkpoint import CheckpointManager
 
         cfg = load_config(model_name, config_root)
         classes = load_classes(os.path.join(data_root, cfg.dataset, "class.txt"))
-        if cfg.pretrain is not None:
-            refuse("two_heads", "FC2 double head")
         ckpt = CheckpointManager(cfg.save_dir or os.path.join("checkpoints", cfg.model))
-        return cls(cfg, ckpt.restore_best(), classes, **kw)
+        return cls(cfg, ckpt.restore_best(), classes, two_heads=two_heads_for(cfg), **kw)
 
     # -- inference --------------------------------------------------------
 

@@ -20,8 +20,9 @@ from tdeed_tpu_torch.models.common import Conv2d, SplitBatchNorm
 from tdeed_tpu_torch.models.shift import GatedShift
 
 ARCH_PARAMS = {
-    # timm regnety_002 generation parameters; rny008 waits (ROADMAP.md)
+    # timm regnety_002 / regnety_008 generation parameters
     "rny002": dict(w0=24, wa=36.44, wm=2.49, depth=13, group_size=8),
+    "rny008": dict(w0=56, wa=38.84, wm=2.4, depth=14, group_size=16),
 }
 
 STEM_WIDTH = 32

@@ -11,12 +11,12 @@ trees.
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, List, Optional, Sequence
 
 import torch
 import torch.nn as nn
 
-from tdeed_tpu_torch.models.heads import FCLayers
+from tdeed_tpu_torch.models.heads import FC2Layers, FCLayers
 from tdeed_tpu_torch.models.regnet import RegNetY
 from tdeed_tpu_torch.models.sgp import EDSGPMixer
 
@@ -28,21 +28,27 @@ class TDEED(nn.Module):
 
     forward(frames, dropout_keep=None) takes standardized frames
     (B, T, H, W, 3) and returns a dict with
-      'logits': (B, T, num_classes + 1) fp32
+      'logits': (B, T, num_classes + 1) fp32, or with ``two_heads`` =
+                (C1+1, C2+1) the two heads' logits concatenated,
+                (B, T, C1+1 + C2+1) (ref: model/modules.py:378-387)
       'displ':  (B, T) fp32 when radi_displacement > 0.
     Train/eval mode is the module's (``.train()`` / ``.eval()``): it picks
-    batch or running BN statistics. ``dropout_keep`` maps head names
-    ('pred_fine', 'pred_displ') to boolean (B, T, D) keep masks; without
+    batch or running BN statistics. ``dropout_keep`` maps the names in
+    ``dropout_heads`` ('pred_fine', or 'pred_fine.fc1' and 'pred_fine.fc2'
+    with two heads; 'pred_displ') to boolean (B, T, D) keep masks; without
     it the heads apply no dropout.
     """
 
     def __init__(self, num_classes: int, clip_len: int, n_layers: int = 2,
                  sgp_ks: int = 7, sgp_r: float = 4.0,
-                 radi_displacement: int = 2, dtype=torch.bfloat16):
+                 radi_displacement: int = 2, dtype=torch.bfloat16,
+                 arch: str = "rny002",
+                 two_heads: Optional[Sequence[int]] = None):
         super().__init__()
         self.clip_len = clip_len
         self.dtype = dtype
-        self._features = RegNetY("rny002", clip_len=clip_len)
+        self.two_heads = None if two_heads is None else tuple(two_heads)
+        self._features = RegNetY(arch, clip_len=clip_len)
         d = self._features.feat_dim
         self.feat_dim = d
         # N(0, 1/clip_len) additive temporal embedding (ref: model/model.py:65,137)
@@ -53,7 +59,17 @@ class TDEED(nn.Module):
         self._pred_displ = (
             FCLayers(d, 1) if radi_displacement > 0 else None
         )
-        self._pred_fine = FCLayers(d, num_classes + 1)
+        if self.two_heads is None:
+            self._pred_fine = FCLayers(d, num_classes + 1)
+        else:
+            self._pred_fine = FC2Layers(d, self.two_heads)
+
+    @property
+    def dropout_heads(self) -> List[str]:
+        """The names ``dropout_keep`` takes a mask under, in draw order."""
+        fine = (["pred_fine"] if self.two_heads is None
+                else ["pred_fine.fc1", "pred_fine.fc2"])
+        return fine + (["pred_displ"] if self._pred_displ is not None else [])
 
     def forward(
         self,
@@ -74,7 +90,13 @@ class TDEED(nn.Module):
             out["displ"] = self._pred_displ(
                 feat, keep.get("pred_displ")
             )[..., 0].float()
-        out["logits"] = self._pred_fine(feat, keep.get("pred_fine")).float()
+        if self.two_heads is None:
+            logits = self._pred_fine(feat, keep.get("pred_fine"))
+        else:
+            logits = self._pred_fine(
+                feat, keep.get("pred_fine.fc1"), keep.get("pred_fine.fc2")
+            )
+        out["logits"] = logits.float()
         return out
 
 
@@ -89,16 +111,12 @@ def refuse(what: str, item: str) -> None:
 def check_supported(cfg) -> None:
     """Raise NotImplementedError for config values the port does not carry."""
     arch = cfg.feature_arch
-    if arch.startswith("rny008"):
-        refuse(f"feature_arch {arch!r}", "rny008")
-    if arch != "rny002_gsf":
+    if arch not in ("rny002_gsf", "rny008_gsf"):
         refuse(f"feature_arch {arch!r}", "GSM, then plain rny002")
     if cfg.fuse_entry or getattr(cfg, "fuse_shift", False):
         refuse("fuse_entry/fuse_shift", "not to port: the fused_block custom-VJP family")
     if cfg.checkpoint_backbone:
         refuse("checkpoint_backbone", "the rest of the CLIs: checkpoint_backbone")
-    if cfg.pretrain is not None:
-        refuse("joint pretraining (two heads)", "FC2 double head")
     if cfg.dtype not in _DTYPES:
         raise ValueError(f"dtype must be one of {sorted(_DTYPES)}, got {cfg.dtype!r}")
 
@@ -106,14 +124,14 @@ def check_supported(cfg) -> None:
 def build_model(cfg, two_heads=None, *, device="cuda") -> TDEED:
     """Construct a TDEED module from a TDEEDConfig (tdeed_tpu_torch.config)
     on ``device``: the CUDA device unless the caller asks for the CPU.
+    ``two_heads`` = (C1+1, C2+1) builds the FC2 double head of joint
+    pretraining (``two_heads_for``).
 
     Weights are drawn from torch's default CPU generator and then moved,
     so one seed gives the same weights on every device. Without a CUDA
     device, ``device="cuda"`` raises RuntimeError: nothing falls back to
     the CPU."""
     check_supported(cfg)
-    if two_heads is not None:
-        refuse("two_heads", "FC2 double head")
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
@@ -128,4 +146,14 @@ def build_model(cfg, two_heads=None, *, device="cuda") -> TDEED:
         sgp_r=cfg.sgp_r,
         radi_displacement=cfg.radi_displacement,
         dtype=_DTYPES[cfg.dtype],
+        arch=cfg.feature_arch.rsplit("_", 1)[0],
+        two_heads=two_heads,
     ).to(device)
+
+
+def two_heads_for(cfg):
+    """(C1+1, C2+1), each head's classes with its background, for a config
+    with joint pretraining; None without (ref: model/model.py:169-172)."""
+    if cfg.pretrain is None:
+        return None
+    return (cfg.num_classes + 1, cfg.pretrain.num_classes + 1)

@@ -19,7 +19,13 @@ masks — and the step also takes them from outside, so tests can hand the
 same values to the JAX package. The draws of step t come from generators
 seeded with (seed, t) alone, as the JAX step folds the step into its key
 (:164): a run resumed from a checkpoint at step t draws what the
-uninterrupted run drew. The double head is not ported yet (ROADMAP.md).
+uninterrupted run drew.
+
+Joint two-dataset training (``two_heads`` = (C1+1, C2+1)): each clip of
+the batch carries a ``dataset`` id in {1, 2}; a head-2 clip's labels are
+offset by C1+1 into the two-head label space, mixup blends over all
+C1+1 + C2+1 classes, and each clip's loss is its own head's
+(``losses.double_head_ce``; tdeed_tpu/train/step.py:103-148).
 """
 
 from __future__ import annotations
@@ -32,12 +38,12 @@ import torch
 
 from tdeed_tpu_torch.kernels.augment import sample_params, train_preprocess
 from tdeed_tpu_torch.models.heads import DROPOUT_RATE
-from tdeed_tpu_torch.models.tdeed import refuse
 from tdeed_tpu_torch.ops.displacement import decode_displacement
 from tdeed_tpu_torch.train import augment
 from tdeed_tpu_torch.train.losses import (
     class_weights,
     displacement_mse,
+    double_head_ce,
     weighted_ce_hard,
     weighted_ce_soft,
 )
@@ -62,6 +68,12 @@ def _on(x, device):
     return None if x is None else torch.as_tensor(x).to(device, non_blocking=True)
 
 
+def _head2_offset(label, dataset_id, num_classes_bg: int):
+    """Head-2 clips' labels shifted past head 1's classes
+    (ref: model/model.py:371-376)."""
+    return torch.where(dataset_id[:, None] == 2, label + num_classes_bg, label)
+
+
 class TrainStep:
     """Callable training step; see make_train_step. ``step`` counts the
     optimizer steps taken; ``state_dict`` and ``load_state_dict`` carry the
@@ -77,7 +89,12 @@ class TrainStep:
         self.mixup = mixup
         self.radi_displacement = radi_displacement
         self.acc_grad_iter = acc_grad_iter
-        self.weights = class_weights(num_classes_bg, fg_weight, _device_of(model))
+        dev = _device_of(model)
+        self.weights = class_weights(num_classes_bg, fg_weight, dev)
+        self.two_heads = model.two_heads
+        self.weights2 = (class_weights(self.two_heads[1], fg_weight, dev)
+                         if self.two_heads else None)
+        self.total_bg = sum(self.two_heads) if self.two_heads else num_classes_bg
         self.seed = seed
         self.step = 0
 
@@ -110,7 +127,7 @@ class TrainStep:
         seq = np.random.SeedSequence([self.seed, self.step])
         generator = torch.Generator().manual_seed(int(seq.generate_state(1, np.uint64)[0]))
         np_rng = np.random.default_rng(seq)
-        heads = ["pred_fine"] + (["pred_displ"] if self.radi_displacement > 0 else [])
+        heads = self.model.dropout_heads
         d = self.model.feat_dim
         draws = []
         for _ in range(self.acc_grad_iter):
@@ -136,15 +153,22 @@ class TrainStep:
         )
         label = _on(batch["label"], dev).long()
         label_d = _on(batch.get("labelD"), dev)
+        dataset_id = _on(batch.get("dataset"), dev)
+        routed = self.two_heads is not None and dataset_id is not None
+        if routed:
+            label = _head2_offset(label, dataset_id, self.num_classes_bg)
         soft = None
         if self.mixup:
             frames2 = augment.random_crop_batch(
                 _on(batch["frame2"], dev), self.crop_dim, draws.crop
             )
+            label2 = _on(batch["label2"], dev).long()
+            if routed:
+                label2 = _head2_offset(label2, dataset_id, self.num_classes_bg)
             with annotate("mixup"):
                 frames, soft, label_d = augment.mixup_batch(
-                    frames, label, frames2, _on(batch["label2"], dev),
-                    draws.lam.to(dev), self.num_classes_bg,
+                    frames, label, frames2, label2,
+                    draws.lam.to(dev), self.total_bg,
                     label_d, _on(batch.get("labelD2"), dev),
                 )
         x = train_preprocess(frames, draws.aug.to(dev, non_blocking=True))
@@ -153,7 +177,12 @@ class TrainStep:
 
         logits = out["logits"]
         c = logits.shape[-1]
-        if soft is not None:
+        if routed:
+            loss = double_head_ce(
+                logits, soft if soft is not None else label, dataset_id,
+                self.num_classes_bg, self.weights, self.weights2, soft=soft is not None,
+            )
+        elif soft is not None:
             loss = weighted_ce_soft(
                 logits.reshape(-1, c), soft.reshape(-1, c), self.weights
             )
@@ -168,8 +197,9 @@ class TrainStep:
     def __call__(self, batch, draws: Optional[Sequence[StepDraws]] = None
                  ) -> Dict[str, torch.Tensor]:
         """One optimizer step on ``batch`` (dict of (B, T, H, W, 3) uint8
-        'frame', (B, T) int 'label', optional 'labelD', and with mixup
-        'frame2'/'label2'/'labelD2'; tensors or numpy arrays), with
+        'frame', (B, T) int 'label', optional 'labelD', with mixup
+        'frame2'/'label2'/'labelD2', and with two heads the (B,) 'dataset'
+        ids; tensors or numpy arrays), with
         ``draws`` from ``draw`` (one per micro-batch) or drawn here.
         Returns {'loss': the micro-batches' mean loss, a detached fp32
         scalar on the model's device}."""
@@ -204,7 +234,6 @@ def make_train_step(
     radi_displacement: int,
     acc_grad_iter: int = 1,
     fg_weight: float = 5.0,
-    two_heads=None,
     seed: int = 0,
 ) -> TrainStep:
     """Build the training step over ``model`` with ``optimizer`` and
@@ -213,9 +242,8 @@ def make_train_step(
     ``acc_grad_iter``) is taken as ``acc_grad_iter`` micro-batches. The
     step runs on the device of the model's parameters (``build_model``
     puts them on the CUDA device unless asked for the CPU) and moves each
-    batch there."""
-    if two_heads is not None:
-        refuse("two_heads", "FC2 double head")
+    batch there. A model with ``two_heads`` (C1+1, C2+1) routes each clip
+    to its dataset's head."""
     return TrainStep(
         model, optimizer, scheduler, crop_dim=crop_dim,
         num_classes_bg=num_classes_bg, mixup=mixup,
@@ -225,25 +253,34 @@ def make_train_step(
 
 
 def make_val_step(model, *, crop_dim: Optional[int], num_classes_bg: int,
-                  radi_displacement: int, fg_weight: float = 5.0, two_heads=None):
+                  radi_displacement: int, fg_weight: float = 5.0):
     """Validation loss step (port of tdeed_tpu/train/step.py:205-247):
     val_step(batch) -> {'loss', 'logits' (B, T, C+1), 'displ' (B, T) when
     the head exists}, on the model's device, under no_grad. Eval
     preprocessing (center crop, no augmentation), running BN statistics,
-    no dropout (ref: model/model.py:196-198)."""
-    if two_heads is not None:
-        refuse("two_heads", "FC2 double head")
-    weights = class_weights(num_classes_bg, fg_weight, _device_of(model))
+    no dropout (ref: model/model.py:196-198). With the model's
+    ``two_heads`` each clip of a batch with 'dataset' ids takes its own
+    head's loss."""
+    two_heads = model.two_heads
+    dev = _device_of(model)
+    weights = class_weights(num_classes_bg, fg_weight, dev)
+    weights2 = class_weights(two_heads[1], fg_weight, dev) if two_heads else None
 
     @torch.no_grad()
     def val_step(batch) -> Dict[str, torch.Tensor]:
         model.eval()
-        dev = _device_of(model)
         label = _on(batch["label"], dev).long()
+        dataset_id = _on(batch.get("dataset"), dev)
         out = model(augment.eval_preprocess(_on(batch["frame"], dev), crop_dim))
         logits = out["logits"]
         c = logits.shape[-1]
-        loss = weighted_ce_hard(logits.reshape(-1, c), label.reshape(-1), weights)
+        if two_heads is not None and dataset_id is not None:
+            loss = double_head_ce(
+                logits, _head2_offset(label, dataset_id, num_classes_bg), dataset_id,
+                num_classes_bg, weights, weights2, soft=False,
+            )
+        else:
+            loss = weighted_ce_hard(logits.reshape(-1, c), label.reshape(-1), weights)
         if radi_displacement > 0 and "labelD" in batch:
             loss = loss + displacement_mse(out["displ"], _on(batch["labelD"], dev))
         aux = {"loss": loss, "logits": logits}
@@ -254,22 +291,24 @@ def make_val_step(model, *, crop_dim: Optional[int], num_classes_bg: int,
     return val_step
 
 
-def make_predict_step(model, *, crop_dim: Optional[int], radi_displacement: int,
-                      two_heads=None):
+def make_predict_step(model, *, crop_dim: Optional[int], radi_displacement: int):
     """Inference step: predict(frames, hflip=False) -> (argmax (B, T),
     scores (B, T, C)), softmax scores displacement-decoded when the head
     exists (ref: model/model.py:334-369). hflip selects the TTA pass. It
     runs on the device of the model's parameters and moves the frames
-    there."""
-    if two_heads is not None:
-        refuse("two_heads", "FC2 double head")
+    there. With the model's ``two_heads`` the scores are head 1's alone,
+    (B, T, C1+1) (ref: model/modules.py:416-426)."""
+    two_heads = model.two_heads
 
     @torch.no_grad()
     def predict(frames, hflip: bool = False):
         model.eval()
         x = augment.eval_preprocess(_on(frames, _device_of(model)), crop_dim, hflip)
         out = model(x)
-        probs = torch.softmax(out["logits"], dim=-1)
+        logits = out["logits"]
+        if two_heads is not None:
+            logits = logits[..., :two_heads[0]]
+        probs = torch.softmax(logits, dim=-1)
         if radi_displacement > 0:
             probs = decode_displacement(probs, out["displ"])
         return probs.argmax(dim=-1), probs

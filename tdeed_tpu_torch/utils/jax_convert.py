@@ -128,9 +128,14 @@ def params_from_jax(params: Mapping[str, Any], batch_stats: Mapping[str, Any]) -
                 group = "_sgp" if m.group(1) == "sgp" else "_sgpMixer"
                 _sgp(sd, f"_temp_fine.{group}.{m.group(2)}", p)
         elif top in ("pred_fine", "pred_displ"):
-            dense = node["fc_out"]["dense"]
-            sd[f"_{top}._fc_out.weight"] = _t(dense["kernel"], (1, 0))
-            sd[f"_{top}._fc_out.bias"] = _t(dense["bias"])
+            # FCLayers, or the FC2 double head's fc1 and fc2 (ref keys
+            # _pred_fine._fc{1,2}._fc_out.*)
+            heads = {"": node} if "fc_out" in node else {
+                f"._{name}": node[name] for name in ("fc1", "fc2")}
+            for sub, head in heads.items():
+                dense = head["fc_out"]["dense"]
+                sd[f"_{top}{sub}._fc_out.weight"] = _t(dense["kernel"], (1, 0))
+                sd[f"_{top}{sub}._fc_out.bias"] = _t(dense["bias"])
         else:
             raise KeyError(f"unrecognized top-level entry {top}")
     return sd

@@ -67,10 +67,27 @@ Phases, each fatal on failure:
      100, 448, 796, 3) bf16, is held against the plain chain and timed.
      Then the same step alone, with its batch on the card: step times and
      peak memory.
+  9. trunks, checkpoint_backbone and export: first the agreement check of
+     phase 4 for rny002_gsm (GSM gates seeded nonzero, as everywhere
+     here: at their zero init GSM only regroups channels); then
+     9a: FineDiving_small at full width with the rny002_gsm, plain rny002
+     and rny008_gsm trunks: a timm-layout file from a seed through
+     checkpoint.load_backbone (each written trunk tensor equal to the
+     file's), 3 train steps with the batch on the card (step times, peak
+     memory, parameters; one photometric launch a step) and one 4-clip
+     predict request of host uint8; 9b: one SoccerNetBall_challenge2 step
+     at full frames with checkpoint_backbone off and one with it on, same
+     weights, batch and draws: the same loss (1e-3 relative), running
+     statistics and BN counters, and a lower peak with it on; 9c:
+     FineDiving_small exported on the card (infer.export, batch 4, both
+     passes, 256^2 stored frames), loaded by a fresh ExportedPredictor and
+     held against the eager predict step (probs within 1e-3): export
+     seconds, artifact bytes, median ms of 10 calls of each.
 
 The line before the last is a JSON object with each kernel's route, the
-TPU kernel it replaces, its launches on its paths (phases 5-7 and phase
-8 for the photometric kernel, each counted from 0, and their sum; the
+TPU kernel it replaces, its launches on its paths (phases 5-7, phase 8
+and phase 9 for the photometric kernel, each counted from 0, and their
+sum; the
 probe tool's run for the probe kernels), its
 largest error against the plain version, its time, the plain version's,
 the one PyTorch call's that computes the same function (null where there
@@ -127,6 +144,10 @@ SN_EVENT_EVERY = 120  # one event every 10 strided frames
 # optimizer steps of batch 2 an epoch; val mAP (the criterion) from epoch 1
 SNB_CONFIG = dict(epoch_num_frames=600, num_epochs=2, warm_up_epochs=1, start_val_epoch=1)
 SNB_ALONE_STEPS = 3  # the phase-8 step alone, batch on the card
+PHASE9_ARCHS = ("rny002_gsm", "rny002", "rny008_gsm")  # FineDiving_small at full width
+PHASE9_STEPS = 3  # train steps of each phase-9 trunk, and of each 9b setting
+EXPORT_CLIPS = 4  # the exported programs' batch (phase 9c)
+EXPORT_CALLS = 10
 KERNEL_SOURCES = ("photometric", "probe")
 # fp32 operations per pixel of the photometric chain (each add, sub, mul,
 # div, min, max and floor once; the blur as two separable 5-tap passes), for
@@ -433,6 +454,20 @@ def _batch(torch, b, t, hw, n_classes_bg, gen, device):
             "frame2": frames(), "label2": labels(), "labelD2": displ()}
 
 
+def _seed_gates(torch, model, seed):
+    """Seeded nonzero weights and bias for every GSM gate conv (zero at
+    init, where GSM only regroups channels and its gate would go untested),
+    drawn on the CPU so every device gets the same values."""
+    from tdeed_tpu_torch.models.shift import GSM
+
+    gen = torch.Generator().manual_seed(seed + 9)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, GSM):
+                for p in (m.conv3D.weight, m.conv3D.bias):
+                    p.copy_(torch.randn(p.shape, generator=gen) * 0.05)
+
+
 def _trainer(torch, cfg, device, crop, seed):
     from tdeed_tpu_torch.models.tdeed import build_model
     from tdeed_tpu_torch.train.schedule import make_optimizer
@@ -440,6 +475,7 @@ def _trainer(torch, cfg, device, crop, seed):
 
     torch.manual_seed(seed)
     model = build_model(cfg, device=device)
+    _seed_gates(torch, model, seed)
     opt, sched = make_optimizer(model.parameters(), cfg.learning_rate, 100, 10_000)
     step = make_train_step(
         model, opt, sched, crop_dim=crop, num_classes_bg=cfg.num_classes_bg,
@@ -448,12 +484,13 @@ def _trainer(torch, cfg, device, crop, seed):
     return model, step
 
 
-def agreement_phase(torch):
-    """fp32 train step and predict on the card vs the CPU, small input."""
+def agreement_phase(torch, **overrides):
+    """fp32 train step and predict on the card vs the CPU, small input;
+    ``overrides`` change FineDiving_small (phase 9: its GSM trunk)."""
     from tdeed_tpu_torch import load_config
     from tdeed_tpu_torch.train.step import make_predict_step
 
-    cfg = load_config("FineDiving_small", config_root=CONFIGS, dtype="float32")
+    cfg = load_config("FineDiving_small", config_root=CONFIGS, dtype="float32", **overrides)
     b, hw, crop = 2, 72, 64
     batch = _batch(torch, b, cfg.clip_len, hw, cfg.num_classes_bg,
                    torch.Generator().manual_seed(SEED), "cpu")
@@ -470,7 +507,7 @@ def agreement_phase(torch):
     (loss_cpu, probs_cpu), (loss_gpu, probs_gpu) = run("cpu"), run("cuda")
     rel = abs(loss_gpu - loss_cpu) / abs(loss_cpu)
     perr = float((probs_gpu - probs_cpu).abs().max())
-    log(f"[agree] fp32 train step loss: cuda {loss_gpu:.7f} cpu {loss_cpu:.7f} "
+    log(f"[agree] {cfg.feature_arch}: fp32 train step loss: cuda {loss_gpu:.7f} cpu {loss_cpu:.7f} "
         f"(rel {rel:.2e}); predict probs max abs diff {perr:.2e}")
     # The kernel and the plain chain may round a few augmented values to
     # neighbouring bf16 numbers, which moves the loss by ~1e-4 relative;
@@ -1015,6 +1052,28 @@ def _write_snb_dataset(root, rng):
     return frame_dir, data_root, labels["soccernetball"], games
 
 
+def _snb_batch(torch, cfg, two_heads):
+    """A joint batch on the card (one SoccerNet Ball clip, one SoccerNet
+    clip, each with its mixup partner) of full uint8 frames, from a seed."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 8)
+    b, t, (h, w) = cfg.batch_size, cfg.clip_len, SNB_FRAME
+
+    def frames():
+        return torch.randint(0, 256, (b, t, h, w, 3), generator=gen, device="cuda",
+                             dtype=torch.uint8)
+
+    def labels():
+        return torch.randint(0, min(two_heads), (b, t), generator=gen, device="cuda")
+
+    def displ():
+        r = cfg.radi_displacement
+        return torch.randint(-r, r + 1, (b, t), generator=gen, device="cuda").float()
+
+    return {"frame": frames(), "label": labels(), "labelD": displ(), "frame2": frames(),
+            "label2": labels(), "labelD2": displ(),
+            "dataset": torch.tensor([1, 2] * (b // 2), device="cuda")}
+
+
 def _snb_step_alone(torch, cfg, smi):
     """The phase-8 training step with its batch already on the card: a
     joint batch (one SoccerNet Ball clip, one SoccerNet clip) of full
@@ -1032,23 +1091,8 @@ def _snb_step_alone(torch, cfg, smi):
         mixup=cfg.mixup, radi_displacement=cfg.radi_displacement,
         acc_grad_iter=cfg.acc_grad_iter, seed=SEED,
     )
-    gen = torch.Generator(device="cuda").manual_seed(SEED + 8)
+    batch = _snb_batch(torch, cfg, two_heads)
     b, t, (h, w) = cfg.batch_size, cfg.clip_len, SNB_FRAME
-
-    def frames():
-        return torch.randint(0, 256, (b, t, h, w, 3), generator=gen, device="cuda",
-                             dtype=torch.uint8)
-
-    def labels():
-        return torch.randint(0, min(two_heads), (b, t), generator=gen, device="cuda")
-
-    def displ():
-        r = cfg.radi_displacement
-        return torch.randint(-r, r + 1, (b, t), generator=gen, device="cuda").float()
-
-    batch = {"frame": frames(), "label": labels(), "labelD": displ(), "frame2": frames(),
-             "label2": labels(), "labelD2": displ(),
-             "dataset": torch.tensor([1, 2] * (b // 2), device="cuda")}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     times, losses = [], []
@@ -1221,6 +1265,242 @@ def snb_phase(torch, smi):
             "train_peak_gib": alone["peak_gib"]}
 
 
+def _timm_file(torch, trunk, path, seed):
+    """Write a timm-layout RegNet-Y state dict for ``trunk`` (timm's keys:
+    a shifted block's ``conv1.net.*`` under ``conv1.*``, no ``gs``; BN
+    counters; a classifier head) to ``path``: the trunk's own values moved
+    by seeded noise, so each tensor differs from the model's."""
+    gen = torch.Generator().manual_seed(seed)
+    sd = {}
+    for k, v in trunk.state_dict().items():
+        if ".gs." in k:
+            continue
+        k = k.replace(".conv1.net.", ".conv1.")
+        v = v.detach().cpu()
+        if v.is_floating_point():
+            v = v + 0.01 * torch.randn(v.shape, generator=gen)
+            if k.endswith("running_var"):
+                v = v.abs()
+        sd[k] = v
+    sd["head.fc.weight"] = torch.zeros(1000, trunk.feat_dim)
+    sd["head.fc.bias"] = torch.zeros(1000)
+    torch.save(sd, path)
+    return sd
+
+
+def trunks_phase(torch, smi):
+    """Phase 9a: FineDiving_small at full width with each PHASE9_ARCHS
+    trunk: a timm-layout file through load_backbone (every written trunk
+    tensor equal to the file's), PHASE9_STEPS train steps with the batch on
+    the card, and one predict request of host uint8."""
+    import tempfile
+
+    from tdeed_tpu_torch import load_config
+    from tdeed_tpu_torch.checkpoint import load_backbone
+    from tdeed_tpu_torch.kernels.augment import photometric
+    from tdeed_tpu_torch.train.step import make_predict_step
+
+    os.makedirs(REPO / "build", exist_ok=True)
+    for arch in PHASE9_ARCHS:
+        cfg = load_config("FineDiving_small", config_root=CONFIGS, feature_arch=arch)
+        model, step = _trainer(torch, cfg, "cuda", cfg.crop_dim, SEED)
+        with tempfile.TemporaryDirectory(dir=REPO / "build") as root:
+            sd = _timm_file(torch, model._features, os.path.join(root, "regnety.pth"), SEED + 10)
+            written = load_backbone(model, os.path.join(root, "regnety.pth"))
+        trunk = model._features.state_dict()
+        equal = all(torch.equal(trunk[k].cpu(), sd[src].to(trunk[k].dtype))
+                    for k, src in written.items())
+        n_file = sum(1 for k in sd if not k.startswith("head.")
+                     and not k.endswith("num_batches_tracked"))
+        if not equal or len(written) != n_file:
+            fail(f"{arch}: load_backbone wrote {len(written)} of the file's {n_file} trunk "
+                 f"tensors, equal to the file: {equal}")
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 11)
+        batch = _batch(torch, cfg.batch_size, cfg.clip_len, FRAME, cfg.num_classes_bg,
+                       gen, "cuda")
+        before = photometric.launches
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        times, losses = [], []
+        for _ in range(PHASE9_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            losses.append(float(step(batch)["loss"]))
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        if photometric.launches - before != PHASE9_STEPS:
+            fail(f"{arch}: {PHASE9_STEPS} steps launched the photometric kernel "
+                 f"{photometric.launches - before} times")
+        if not all(map(math.isfinite, losses)):
+            fail(f"{arch}: non-finite training loss {losses}")
+        predict = make_predict_step(model, crop_dim=cfg.crop_dim,
+                                    radi_displacement=cfg.radi_displacement)
+        frames = torch.randint(0, 256, (REQUEST_CLIPS, cfg.clip_len, FRAME, FRAME, 3),
+                               generator=torch.Generator().manual_seed(SEED + 12),
+                               dtype=torch.uint8)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cls, probs = predict(frames)
+        torch.cuda.synchronize()
+        predict_ms = (time.perf_counter() - t0) * 1e3
+        if tuple(probs.shape) != (REQUEST_CLIPS, cfg.clip_len, cfg.num_classes_bg) or not bool(
+                (torch.isfinite(probs) & (probs >= 0) & (probs <= 1)).all()):
+            fail(f"{arch}: predict returned {tuple(probs.shape)} scores, or some outside [0, 1]")
+        n = cfg.batch_size * cfg.clip_len
+        log(f"[trunks] {arch} (batch {cfg.batch_size} x clip {cfg.clip_len}, {FRAME}^2 uint8 "
+            f"-> crop {cfg.crop_dim}, mixup, {cfg.dtype}): load_backbone wrote {len(written)} "
+            f"trunk tensors, each equal to the file's; losses "
+            f"{', '.join(f'{v:.4f}' for v in losses)}; step times "
+            f"{', '.join(f'{x * 1e3:.1f}' for x in times)} ms, after the first "
+            f"{n * (len(times) - 1) / sum(times[1:]):.0f} frames/s; peak memory {peak:.2f} GiB; "
+            f"{sum(p.numel() for p in model.parameters())} params; a {REQUEST_CLIPS}-clip predict "
+            f"request of host uint8 {predict_ms:.1f} ms; {smi}")
+        del model, step, batch, predict
+        torch.cuda.empty_cache()
+
+
+def checkpoint_phase(torch, smi):
+    """Phase 9b: PHASE9_STEPS SoccerNetBall_challenge2 steps at full frames
+    with checkpoint_backbone off and as many with it on, from the same
+    weights, batch and draws. The first step of each is held to the same
+    loss (1e-3 relative), the same running statistics and BN counters;
+    the peak over the steps is lower with it on; the step time is that of
+    the steps after the first (the first allocates AdamW's state and picks
+    the cuDNN algorithms)."""
+    import dataclasses
+    import statistics
+
+    from tdeed_tpu_torch import load_config
+    from tdeed_tpu_torch.models.tdeed import build_model, two_heads_for
+    from tdeed_tpu_torch.train.schedule import make_optimizer
+    from tdeed_tpu_torch.train.step import make_train_step
+
+    cfg = load_config("SoccerNetBall_challenge2", config_root=CONFIGS)
+    two_heads = two_heads_for(cfg)
+    batch = _snb_batch(torch, cfg, two_heads)
+    torch.manual_seed(SEED)
+    start = None
+    runs = {}
+    for ck in (False, True):
+        model = build_model(dataclasses.replace(cfg, checkpoint_backbone=ck), two_heads,
+                            device="cuda")
+        if start is None:
+            start = {k: v.clone() for k, v in model.state_dict().items()}
+        model.load_state_dict(start)
+        opt, sched = make_optimizer(model.parameters(), cfg.learning_rate, 3, 30)
+        step = make_train_step(
+            model, opt, sched, crop_dim=cfg.crop_dim, num_classes_bg=cfg.num_classes_bg,
+            mixup=cfg.mixup, radi_displacement=cfg.radi_displacement, seed=SEED,
+        )
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        losses, times, stats = [], [], None
+        for _ in range(PHASE9_STEPS):
+            t0 = time.perf_counter()
+            losses.append(float(step(batch)["loss"]))
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            if stats is None:
+                stats = {k: v.clone() for k, v in model.state_dict().items()
+                         if k.endswith(("running_mean", "running_var", "num_batches_tracked"))}
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        runs[ck] = (losses, times, peak, stats)
+        del model, opt, sched, step
+        torch.cuda.empty_cache()
+    (l0, t0_, p0, s0), (l1, t1_, p1, s1) = runs[False], runs[True]
+    rel = abs(l1[0] - l0[0]) / abs(l0[0])
+    same_stats = all(torch.equal(s0[k], s1[k]) for k in s0)
+    counters = {int(v) for k, v in s1.items() if k.endswith("num_batches_tracked")}
+    ms0, ms1 = statistics.median(t0_[1:]), statistics.median(t1_[1:])
+
+    def each(xs, fmt):
+        return ", ".join(format(x, fmt) for x in xs)
+
+    log(f"[ckpt] {cfg.feature_arch}, batch {cfg.batch_size} x clip {cfg.clip_len} of "
+        f"{SNB_FRAME[0]}x{SNB_FRAME[1]}, {cfg.dtype}, two heads {two_heads}, "
+        f"{PHASE9_STEPS} steps each: checkpoint_backbone off: losses {each(l0, '.6f')}, "
+        f"steps {each(t0_, '.1f')} ms, median after the first {ms0:.1f} ms, peak "
+        f"{p0:.2f} GiB; on: losses {each(l1, '.6f')} (first step rel {rel:.2e}), steps "
+        f"{each(t1_, '.1f')} ms, median after the first {ms1:.1f} ms ({ms1 / ms0:.1%} of "
+        f"off), peak {p1:.2f} GiB ({p1 / p0:.1%} of off); after the first step running "
+        f"statistics equal: {same_stats}, BN counters {sorted(counters)}; {smi}")
+    if not all(map(math.isfinite, l0 + l1)):
+        fail(f"non-finite loss with checkpoint_backbone off {l0} or on {l1}")
+    if not rel <= 1e-3:
+        fail("checkpoint_backbone changed the step's loss")
+    if not same_stats or counters != {1}:
+        fail("checkpoint_backbone changed the running statistics or the BN counters")
+    if not p1 < p0:
+        fail("checkpoint_backbone did not lower the step's peak memory")
+
+
+def export_phase(torch, smi):
+    """Phase 9c: FineDiving_small at full width exported on the card
+    (EXPORT_CLIPS clips, both passes, stored frames of FRAME^2), loaded by
+    a fresh ExportedPredictor and held against the eager predict step on
+    the same host uint8 batch."""
+    import statistics
+    import tempfile
+
+    from tdeed_tpu_torch import load_config
+    from tdeed_tpu_torch.infer.export import ExportedPredictor, export_predictor
+    from tdeed_tpu_torch.models.tdeed import build_model
+    from tdeed_tpu_torch.train.step import make_predict_step
+
+    cfg = load_config("FineDiving_small", config_root=CONFIGS)
+    torch.manual_seed(SEED)
+    model = build_model(cfg, device="cuda")
+    classes = {f"class{i}": i for i in range(1, cfg.num_classes + 1)}
+    frames = torch.randint(0, 256, (EXPORT_CLIPS, cfg.clip_len, FRAME, FRAME, 3),
+                           generator=torch.Generator().manual_seed(SEED + 13), dtype=torch.uint8)
+    predict = make_predict_step(model, crop_dim=cfg.crop_dim,
+                                radi_displacement=cfg.radi_displacement)
+
+    def median_ms(fn):
+        times = []
+        for _ in range(EXPORT_CALLS + 1):  # the first pays first-call costs
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(times[1:])
+
+    os.makedirs(REPO / "build", exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=REPO / "build") as root:
+        out = os.path.join(root, "artifact")
+        t0 = time.perf_counter()
+        export_predictor(cfg, model.state_dict(), classes, out, batch_size=EXPORT_CLIPS,
+                         frame_hw=(FRAME, FRAME), device="cuda")
+        export_s = time.perf_counter() - t0
+        size = sum(os.path.getsize(os.path.join(out, f)) for f in os.listdir(out))
+        t0 = time.perf_counter()
+        ep = ExportedPredictor(out)
+        load_s = time.perf_counter() - t0
+    errs, same_cls = [], []
+    for hflip in (False, True):
+        cls, probs = ep(frames, hflip=hflip)
+        want_cls, want = predict(frames, hflip)
+        if tuple(probs.shape) != tuple(want.shape):
+            fail(f"the exported program returned {tuple(probs.shape)}, the eager step "
+                 f"{tuple(want.shape)}")
+        errs.append(float((probs.float() - want.float()).abs().max()))
+        same_cls.append(float((cls == want_cls).float().mean()))
+    eager_ms = median_ms(lambda: predict(frames))
+    exported_ms = median_ms(lambda: ep(frames))
+    log(f"[export] FineDiving_small ({cfg.feature_arch}, {cfg.dtype}) exported on the card for "
+        f"{EXPORT_CLIPS} clips of {cfg.clip_len} x {FRAME}^2 uint8, both passes: export "
+        f"{export_s:.1f} s, artifact {size} bytes, load {load_s:.1f} s; probs max abs diff "
+        f"against the eager step {errs[0]:.3g} (hflip {errs[1]:.3g}), argmax agreement "
+        f"{same_cls[0]:.2%} / {same_cls[1]:.2%}; median of {EXPORT_CALLS} calls of host uint8: "
+        f"eager {eager_ms:.2f} ms, exported {exported_ms:.2f} ms; {smi}")
+    if not max(errs) <= 1e-3:
+        fail("the exported predict step disagrees with the eager one")
+    del model, ep, predict
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
 
@@ -1256,10 +1536,21 @@ def main() -> int:
         fail(f"the training steps launched the photometric kernel {flagship_launches} times")
     torch.cuda.empty_cache()
     snb = snb_phase(torch, smi)  # counts its own launches from 0
-    k1["launches"] = flagship_launches + snb.pop("launches")
+    snb_launches = snb.pop("launches")
+    torch.cuda.empty_cache()
+    agreement_phase(torch, feature_arch="rny002_gsm")
+    photometric.launches = 0
+    trunks_phase(torch, smi)
+    checkpoint_phase(torch, smi)
+    phase9_launches = photometric.launches
+    if phase9_launches != PHASE9_STEPS * (len(PHASE9_ARCHS) + 2):  # 9a, 9b off and on
+        fail(f"phase 9 launched the photometric kernel {phase9_launches} times")
+    export_phase(torch, smi)
+    k1["launches"] = flagship_launches + snb_launches + phase9_launches
     k1["launches_by_path"] = {"phases 5-7 (FineDiving_small)": flagship_launches,
-                              "phase 8 (SoccerNetBall_challenge2)":
-                                  k1["launches"] - flagship_launches}
+                              "phase 8 (SoccerNetBall_challenge2)": snb_launches,
+                              "phase 9 (GSM and plain trunks, checkpoint_backbone)":
+                                  phase9_launches}
     k1["max_abs_err"] = max(k1["max_abs_err"], snb["step_max_abs_err"])
     k1.update({f"snb_{k}": v for k, v in snb.items()})
 

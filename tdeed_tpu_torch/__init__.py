@@ -11,8 +11,9 @@ copies: ``config``, the dataset registry, frame reads and the frame cache
 (data/), window enumeration, NMS and the evaluation protocol (infer/), the
 tolerance mAP and the SoccerNet scorers (metrics/) and the JSON writers
 (utils/io.py). On them sit sliding-window inference and serving,
-``infer.predictor.SpottingPredictor``, and the CLIs (cli/: train, predict,
-evaluate_challenge).
+``infer.predictor.SpottingPredictor``, the ``torch.export`` serving
+artifact (``infer.export``) and the CLIs (cli/: train, predict,
+evaluate_challenge, export_model).
 The port imports nothing of jax or of ``tdeed_tpu``; its entry points run
 on the CUDA device unless the caller asks for the CPU.
 """

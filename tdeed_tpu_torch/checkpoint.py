@@ -29,6 +29,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 from typing import Any, Dict, Optional, Tuple
 
 import torch
@@ -77,6 +78,75 @@ def save_params(path: str, model: torch.nn.Module) -> None:
 
 def restore_params(path: str, map_location="cpu") -> Dict[str, torch.Tensor]:
     return torch.load(path, map_location=map_location)
+
+
+_TIMM_BLOCK_RE = re.compile(r"^s(\d+)\.b(\d+)\.(.*)$")
+_TIMM_BN = ("bn.weight", "bn.bias", "bn.running_mean", "bn.running_var")
+
+
+def _timm_key_kept(rest: str, in_block: bool) -> bool:
+    """The keys tools/import_timm_weights.py:convert_state_dict maps, below
+    ``stem.`` or ``s{i}.b{j}.``: the ConvBN's conv weight and BN (weights
+    and running statistics, not the counter) and, in a block, the SE convs."""
+    if rest == "conv.weight" or rest in _TIMM_BN:
+        return True
+    if not in_block:
+        return False
+    if rest.startswith(("conv1.", "conv2.", "conv3.", "downsample.")):
+        return _timm_key_kept(rest.split(".", 1)[1], False)
+    parts = rest.split(".")  # se.<fc>.weight / se.<fc>.bias
+    return len(parts) == 3 and parts[0] == "se" and parts[2] in ("weight", "bias")
+
+
+def load_backbone(model: torch.nn.Module, path: str) -> Dict[str, str]:
+    """Overlay a timm RegNet-Y state dict file (``torch.save`` of
+    ``timm.create_model('regnety_002' / 'regnety_008').state_dict()``, or
+    timm's ``.pth``) onto ``model._features``, in place; returns {trunk
+    key: file key} of what it wrote.
+
+    The reference always starts from ImageNet-pretrained timm weights
+    (ref: model/model.py:37-46). The rules are the JAX package's: the key
+    mapping of tools/import_timm_weights.py:convert_state_dict (``head.*``
+    and keys without a counterpart are skipped), the checks of
+    tdeed_tpu/checkpoint.py:overlay_tree (every kept key must exist in the
+    trunk with the same shape, else the load raises naming it), and the
+    shift modules (``gs``) keep their init. In a shifted block timm's
+    ``conv1.*`` lands on the wrapped conv, ``conv1.net.*``.
+
+    The JAX package's ``backbone_ckpt`` names the orbax directory that
+    tool writes, which only JAX reads; the port reads the file the tool
+    starts from, and refuses a directory."""
+    if os.path.isdir(path):
+        raise ValueError(
+            f"backbone_ckpt {path!r} is a directory, the JAX package's orbax backbone; "
+            "the port reads the timm RegNet-Y state dict file (torch.save or timm's .pth) "
+            "that tools/import_timm_weights.py converts from"
+        )
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    trunk = model._features.state_dict()
+    written = {}
+    for key, value in sd.items():
+        m = _TIMM_BLOCK_RE.match(key)
+        if key.startswith("stem."):
+            kept = _timm_key_kept(key[len("stem."):], False)
+        else:
+            kept = m is not None and _timm_key_kept(m.group(3), True)
+        if not kept:
+            continue
+        dst = key
+        if m and m.group(3).startswith("conv1.") and \
+                f"s{m.group(1)}.b{m.group(2)}.conv1.net.conv.weight" in trunk:
+            dst = key.replace(".conv1.", ".conv1.net.", 1)
+        if dst not in trunk:
+            raise KeyError(f"backbone_ckpt key {key!r} has no counterpart {dst!r} in the trunk")
+        value = torch.as_tensor(value)
+        if tuple(value.shape) != tuple(trunk[dst].shape):
+            raise ValueError(f"backbone_ckpt key {key!r}: shape {tuple(value.shape)}, "
+                             f"the trunk's {dst!r} is {tuple(trunk[dst].shape)}")
+        written[dst] = key
+        with torch.no_grad():
+            trunk[dst].copy_(value)
+    return written
 
 
 class CheckpointManager:

@@ -89,9 +89,6 @@ def refuse_waiting(cfg, args) -> None:
         refuse("--distributed (multi-process data parallelism)", "DDP")
     if args.n_devices is not None and args.n_devices > 1:
         refuse(f"--n_devices {args.n_devices} (data parallelism over cards)", "DDP")
-    if cfg.backbone_ckpt:
-        refuse("backbone_ckpt (an orbax backbone directory)",
-               "the rest of the CLIs: backbone_ckpt")
     check_supported(cfg)
 
 
@@ -166,7 +163,7 @@ def main(argv=None) -> Dict:
     cfg = load_config(args.model, args.config_root, acc_grad_iter=args.acc_grad_iter)
     refuse_waiting(cfg, args)
 
-    from tdeed_tpu_torch.checkpoint import BEST, LAST, CheckpointManager, save_state
+    from tdeed_tpu_torch.checkpoint import BEST, LAST, CheckpointManager, load_backbone, save_state
     from tdeed_tpu_torch.data import frames as frame_io
     from tdeed_tpu_torch.data.loader import BatchLoader, FrameCache, device_prefetch
     from tdeed_tpu_torch.data.registry import get_spec, load_classes
@@ -202,6 +199,11 @@ def main(argv=None) -> Dict:
 
     # --- model / optimizer ---------------------------------------------
     model = build_model(cfg, two_heads, device=args.device)
+    if cfg.backbone_ckpt:
+        # ImageNet-pretrained trunk (ref: model/model.py:37-46 builds it with
+        # timm pretrained=True); here a timm state dict file
+        load_backbone(model, cfg.backbone_ckpt)
+        print(f"Loaded pretrained backbone <- {cfg.backbone_ckpt}")
     device = next(model.parameters()).device
     crop = cfg.crop_dim
     if crop is None and cfg.acc_grad_iter == 1:

@@ -39,6 +39,19 @@ from tdeed_tpu_torch.train.step import make_predict_step
 from tdeed_tpu_torch.utils.jax_convert import params_from_jax
 
 
+def restore_run(model_name: str, config_root: str = "configs", data_root: str = "data"):
+    """(cfg, state_dict, classes, two_heads) of a finished run of the
+    port's training CLI: its config, its best checkpoint (on the CPU), the
+    dataset's class map, and the double head's sizes for a config with
+    ``pretrain`` (else None)."""
+    from tdeed_tpu_torch.checkpoint import CheckpointManager
+
+    cfg = load_config(model_name, config_root)
+    classes = load_classes(os.path.join(data_root, cfg.dataset, "class.txt"))
+    ckpt = CheckpointManager(cfg.save_dir or os.path.join("checkpoints", cfg.model))
+    return cfg, ckpt.restore_best(), classes, two_heads_for(cfg)
+
+
 class _PinnedStager:
     """Host-to-device copies of window batches through two pinned host
     buffers, used in turn.
@@ -139,12 +152,8 @@ class SpottingPredictor:
         the port's training CLI (cli/train.py), on ``device`` ("cuda"
         unless the caller passes ``device="cpu"``); a config with
         ``pretrain`` builds the double head and spots with head 1."""
-        from tdeed_tpu_torch.checkpoint import CheckpointManager
-
-        cfg = load_config(model_name, config_root)
-        classes = load_classes(os.path.join(data_root, cfg.dataset, "class.txt"))
-        ckpt = CheckpointManager(cfg.save_dir or os.path.join("checkpoints", cfg.model))
-        return cls(cfg, ckpt.restore_best(), classes, two_heads=two_heads_for(cfg), **kw)
+        cfg, state_dict, classes, two_heads = restore_run(model_name, config_root, data_root)
+        return cls(cfg, state_dict, classes, two_heads=two_heads, **kw)
 
     # -- inference --------------------------------------------------------
 

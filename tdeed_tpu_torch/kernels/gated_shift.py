@@ -1,5 +1,6 @@
-"""GSF (Gate-Shift-Fuse) compute core (port of
-tdeed_tpu/kernels/gated_shift.py:gsf_core).
+"""GSM and GSF (Gate-Shift-Fuse) compute core (port of
+tdeed_tpu/kernels/gated_shift.py:gsf_core and the gating of
+tdeed_tpu/models/shift.py:GSM).
 
 Written from the JAX package's direct-convolution oracles
 (``gsf_gate_conv``, ``gsf_post_gate_conv``): a grouped 3-D gate conv
@@ -48,18 +49,24 @@ def _fuse(y, r, w, b):
     return y * wm + r * (1 - wm)
 
 
-def gsf_post_gate(x, gate, ch1_w, ch1_b, ch2_w, ch2_b):
-    """Gating, shift and fusion given the tanh gate. x: (B, T, H, W, C) in
-    the activation dtype; ch*_w: (1, 2, 3, 3). Returns the blended head
-    before the channel interleave, in x's dtype."""
+def gate_shift(x, gate):
+    """The gating and shift GSM and GSF share (ref: gsm.py:83-87): each
+    half of x: (B, T, H, W, C) times its gate channel is shifted one frame
+    along T (the first half back, the second forward, zero fill); the rest
+    is the residual. Returns (y1, y2, r1, r2) in x's dtype."""
     c = x.shape[-1]
     gate = gate.to(x.dtype)
     g1, g2 = gate[..., 0:1], gate[..., 1:2]
     x1, x2 = x[..., : c // 2], x[..., c // 2:]
     y1, y2 = g1 * x1, g2 * x2
-    r1, r2 = x1 - y1, x2 - y2
-    y1 = lshift_zero(y1, dim=1)
-    y2 = rshift_zero(y2, dim=1)
+    return lshift_zero(y1, dim=1), rshift_zero(y2, dim=1), x1 - y1, x2 - y2
+
+
+def gsf_post_gate(x, gate, ch1_w, ch1_b, ch2_w, ch2_b):
+    """Gating, shift and fusion given the tanh gate. x: (B, T, H, W, C) in
+    the activation dtype; ch*_w: (1, 2, 3, 3). Returns the blended head
+    before the channel interleave, in x's dtype."""
+    y1, y2, r1, r2 = gate_shift(x, gate)
     return torch.cat(
         [_fuse(y1, r1, ch1_w, ch1_b), _fuse(y2, r2, ch2_w, ch2_b)], dim=-1
     )

@@ -10,6 +10,8 @@ module says otherwise, which is what the JAX package reproduces with
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
@@ -107,6 +109,9 @@ class SplitBatchNorm(nn.Module):
     def __init__(self, num_features: int, eps: float = 1e-5):
         super().__init__()
         self.eps = eps
+        # False while a checkpointed block recomputes its forward in the
+        # backward pass (frozen_running_stats): the step already wrote them
+        self.update_stats = True
         self.weight = nn.Parameter(torch.ones(num_features))
         self.bias = nn.Parameter(torch.zeros(num_features))
         self.register_buffer("running_mean", torch.zeros(num_features))
@@ -119,11 +124,12 @@ class SplitBatchNorm(nn.Module):
         if self.training:
             mean, sq = _BatchMoments.apply(x)
             var = sq - mean.square()
-            with torch.no_grad():
-                m = self.momentum
-                self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
-                self.running_var.copy_(m * self.running_var + (1 - m) * var)
-                self.num_batches_tracked.add_(1)
+            if self.update_stats:
+                with torch.no_grad():
+                    m = self.momentum
+                    self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
+                    self.running_var.copy_(m * self.running_var + (1 - m) * var)
+                    self.num_batches_tracked.add_(1)
         else:
             mean, var = self.running_mean, self.running_var
         inv = self.weight * torch.rsqrt(var + self.eps)
@@ -132,3 +138,19 @@ class SplitBatchNorm(nn.Module):
         a = inv.to(x.dtype).view(shape)
         b = (self.bias - mean * inv).to(x.dtype).view(shape)
         return x * a + b
+
+
+@contextlib.contextmanager
+def frozen_running_stats(module: nn.Module):
+    """Within, every SplitBatchNorm under ``module`` normalises as before
+    but leaves its running statistics and ``num_batches_tracked`` alone:
+    the recompute of a checkpointed block (models/regnet.py) repeats a
+    forward whose statistics the step has already taken."""
+    bns = [m for m in module.modules() if isinstance(m, SplitBatchNorm)]
+    for m in bns:
+        m.update_stats = False
+    try:
+        yield
+    finally:
+        for m in bns:
+            m.update_stats = True

@@ -1,12 +1,12 @@
-"""Gated temporal shift: GSF and the fold-dim wrapper (port of
-tdeed_tpu/models/shift.py; GSM is not ported yet, see ROADMAP.md).
+"""Gated temporal shift: GSM, GSF and the fold-dim wrapper (port of
+tdeed_tpu/models/shift.py).
 
 The reference splices a GatedShift into conv1 of every block of backbone
 stages s3/s4 (ref: model/shift.py:46-93): the wrapper shifts the first
-fold_dim channels with a _GSF module and then runs the wrapped conv. The
-port keeps that structure and the reference attribute names (``gs``,
-``net``, ``conv3D``, ``channel_conv1/2``), so a reference checkpoint's
-``conv1.gs.*`` / ``conv1.net.*`` keys load as they are.
+fold_dim channels with a _GSM or _GSF module and then runs the wrapped
+conv. The port keeps that structure and the reference attribute names
+(``gs``, ``net``, ``conv3D``, ``bn``, ``channel_conv1/2``), so a reference
+checkpoint's ``conv1.gs.*`` / ``conv1.net.*`` keys load as they are.
 """
 
 from __future__ import annotations
@@ -16,7 +16,7 @@ import math
 import torch
 import torch.nn as nn
 
-from tdeed_tpu_torch.kernels.gated_shift import gsf_core
+from tdeed_tpu_torch.kernels.gated_shift import gate_shift, gsf_core, gsf_gate
 from tdeed_tpu_torch.models.common import Conv2d, Conv3d, SplitBatchNorm
 
 
@@ -37,6 +37,33 @@ def _interleave_halves(y1: torch.Tensor, y2: torch.Tensor) -> torch.Tensor:
     return torch.cat([regroup(y1), regroup(y2)], dim=-1)
 
 
+def _bn_relu(bn, x):
+    """relu(bn(x)) over the channel dim of (B, T, H, W, C), normalised as
+    the (B, C, T, H, W) view."""
+    return torch.relu(bn(x.permute(0, 4, 1, 2, 3))).permute(0, 2, 3, 4, 1)
+
+
+class GSM(nn.Module):
+    """Gate-Shift Module on (B, T, H, W, C) (ref: model/impl/gsm.py:69-116):
+    BN, ReLU, a grouped 3-D gate conv C -> 2 and tanh; each half's gated
+    part shifted one frame and its residual added back. The gate conv is
+    zero-initialised, so at init GSM only regroups channels."""
+
+    def __init__(self, channels: int):
+        super().__init__()
+        if channels % 2:
+            raise ValueError(f"GSM needs an even channel count, got {channels}")
+        self.conv3D = Conv3d(channels, 2, 3, padding=1, groups=2)
+        nn.init.zeros_(self.conv3D.weight)
+        nn.init.zeros_(self.conv3D.bias)
+        self.bn = SplitBatchNorm(channels)
+
+    def forward(self, x):
+        gate = gsf_gate(_bn_relu(self.bn, x), self.conv3D.weight, self.conv3D.bias)
+        y1, y2, r1, r2 = gate_shift(x, gate)
+        return _interleave_halves(y1 + r1, y2 + r2)
+
+
 class GSF(nn.Module):
     """Gate-Shift-Fuse on (B, T, H, W, C) (ref: model/impl/gsf.py:9-93).
     The gate conv keeps torch's default init (unlike GSM's zero init)."""
@@ -52,10 +79,8 @@ class GSF(nn.Module):
 
     def forward(self, x):
         c = x.shape[-1]
-        # BN over channel dim 1 of the (B, C, T, H, W) view
-        xn = torch.relu(self.bn(x.permute(0, 4, 1, 2, 3))).permute(0, 2, 3, 4, 1)
         out = gsf_core(
-            x, xn,
+            x, _bn_relu(self.bn, x),
             self.conv3D.weight, self.conv3D.bias,
             self.channel_conv1.weight, self.channel_conv1.bias,
             self.channel_conv2.weight, self.channel_conv2.bias,
@@ -63,18 +88,24 @@ class GSF(nn.Module):
         return _interleave_halves(out[..., : c // 2], out[..., c // 2:])
 
 
+SHIFTS = {"gsm": GSM, "gsf": GSF}
+
+
 class GatedShift(nn.Module):
-    """Shift the first fold_dim channels of (B*T, C, H, W) with GSF, pass
-    the rest through, then apply ``net`` (ref: model/shift.py:64-93).
+    """Shift the first fold_dim channels of (B*T, C, H, W) with GSM or GSF
+    (``mode``), pass the rest through, then apply ``net``
+    (ref: model/shift.py:64-93).
 
     ``net`` is the wrapped conv1 inside the backbone; nn.Identity gives the
     bare shift of the JAX package's GatedShift."""
 
-    def __init__(self, channels: int, clip_len: int, net: nn.Module):
+    def __init__(self, channels: int, clip_len: int, net: nn.Module, mode: str):
         super().__init__()
+        if mode not in SHIFTS:
+            raise ValueError(f"shift mode must be one of {sorted(SHIFTS)}, got {mode!r}")
         self.clip_len = clip_len
         self.fold = fold_dim_for(channels)
-        self.gs = GSF(self.fold)
+        self.gs = SHIFTS[mode](self.fold)
         self.net = net
 
     def forward(self, x):

@@ -17,7 +17,7 @@ import torch
 import torch.nn as nn
 
 from tdeed_tpu_torch.models.heads import FC2Layers, FCLayers
-from tdeed_tpu_torch.models.regnet import RegNetY
+from tdeed_tpu_torch.models.regnet import ARCH_PARAMS, RegNetY
 from tdeed_tpu_torch.models.sgp import EDSGPMixer
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
@@ -32,6 +32,9 @@ class TDEED(nn.Module):
                 (C1+1, C2+1) the two heads' logits concatenated,
                 (B, T, C1+1 + C2+1) (ref: model/modules.py:378-387)
       'displ':  (B, T) fp32 when radi_displacement > 0.
+    The trunk is RegNet-Y ``arch`` with ``shift_mode`` ('gsm', 'gsf' or
+    None for the plain trunk) in s3/s4; ``checkpoint_backbone`` recomputes
+    its activations in the backward pass (models/regnet.py).
     Train/eval mode is the module's (``.train()`` / ``.eval()``): it picks
     batch or running BN statistics. ``dropout_keep`` maps the names in
     ``dropout_heads`` ('pred_fine', or 'pred_fine.fc1' and 'pred_fine.fc2'
@@ -43,12 +46,15 @@ class TDEED(nn.Module):
                  sgp_ks: int = 7, sgp_r: float = 4.0,
                  radi_displacement: int = 2, dtype=torch.bfloat16,
                  arch: str = "rny002",
-                 two_heads: Optional[Sequence[int]] = None):
+                 two_heads: Optional[Sequence[int]] = None,
+                 shift_mode: Optional[str] = "gsf",
+                 checkpoint_backbone: bool = False):
         super().__init__()
         self.clip_len = clip_len
         self.dtype = dtype
         self.two_heads = None if two_heads is None else tuple(two_heads)
-        self._features = RegNetY(arch, clip_len=clip_len)
+        self._features = RegNetY(arch, clip_len=clip_len, shift_mode=shift_mode,
+                                 checkpoint_blocks=checkpoint_backbone)
         d = self._features.feat_dim
         self.feat_dim = d
         # N(0, 1/clip_len) additive temporal embedding (ref: model/model.py:65,137)
@@ -109,14 +115,16 @@ def refuse(what: str, item: str) -> None:
 
 
 def check_supported(cfg) -> None:
-    """Raise NotImplementedError for config values the port does not carry."""
-    arch = cfg.feature_arch
-    if arch not in ("rny002_gsf", "rny008_gsf"):
-        refuse(f"feature_arch {arch!r}", "GSM, then plain rny002")
+    """Raise NotImplementedError for config values the port does not carry,
+    ValueError for a feature_arch the JAX package cannot build either."""
+    if cfg.backbone not in ARCH_PARAMS:
+        # parsed as the JAX package parses it (tdeed_tpu/models/tdeed.py:49-54)
+        raise ValueError(
+            f"feature_arch {cfg.feature_arch!r}: the trunk {cfg.backbone!r} is not one of "
+            f"{sorted(ARCH_PARAMS)} (an optional _gsm or _gsf suffix adds the shift)"
+        )
     if cfg.fuse_entry or getattr(cfg, "fuse_shift", False):
         refuse("fuse_entry/fuse_shift", "not to port: the fused_block custom-VJP family")
-    if cfg.checkpoint_backbone:
-        refuse("checkpoint_backbone", "the rest of the CLIs: checkpoint_backbone")
     if cfg.dtype not in _DTYPES:
         raise ValueError(f"dtype must be one of {sorted(_DTYPES)}, got {cfg.dtype!r}")
 
@@ -146,8 +154,10 @@ def build_model(cfg, two_heads=None, *, device="cuda") -> TDEED:
         sgp_r=cfg.sgp_r,
         radi_displacement=cfg.radi_displacement,
         dtype=_DTYPES[cfg.dtype],
-        arch=cfg.feature_arch.rsplit("_", 1)[0],
+        arch=cfg.backbone,
         two_heads=two_heads,
+        shift_mode=cfg.shift_mode,
+        checkpoint_backbone=cfg.checkpoint_backbone,
     ).to(device)
 
 

@@ -16,9 +16,10 @@
    ``mixup`` annotation (the fp32 blend and its bf16 cast) and of K1's
    kernel, and the top device ops.
 
-Traces go under build/photometric_trace/. ``--device cpu`` runs the same
-code on the plain versions at a small size (K1 on (2, 3, 20, 30, 3), the
-step at batch 2, 72^2 frames cropped to 64, fp32) and measures no device.
+A card run writes its traces under build/photometric_trace/. ``--device
+cpu`` runs the same code on the plain versions at a small size (K1 on
+(2, 3, 20, 30, 3), the step at batch 2, 72^2 frames cropped to 64, fp32),
+measures no device and writes no trace file.
 """
 
 from __future__ import annotations
@@ -133,7 +134,7 @@ def profile_train_step(frame: int, crop: int, dtype: Optional[str], device) -> d
     for _ in range(WARM_STEPS):
         float(step(batch)["loss"])
     on_card = torch.device(device).type == "cuda"
-    with trace(str(TRACE_DIR / "train_step"), device) as prof:
+    with trace(str(TRACE_DIR / "train_step") if on_card else None, device) as prof:
         float(step(batch)["loss"])
         if on_card:
             torch.cuda.synchronize()

@@ -291,6 +291,23 @@ def make_val_step(model, *, crop_dim: Optional[int], num_classes_bg: int,
     return val_step
 
 
+def predict_scores(model, frames, *, crop_dim: Optional[int], radi_displacement: int,
+                   hflip: bool = False):
+    """The predict step's computation on (B, T, H, W, 3) uint8 ``frames``
+    already on the model's device, in the model's current mode: (argmax
+    (B, T), scores (B, T, C)). The serving export (infer/export.py) traces
+    it."""
+    x = augment.eval_preprocess(frames, crop_dim, hflip)
+    out = model(x)
+    logits = out["logits"]
+    if model.two_heads is not None:
+        logits = logits[..., :model.two_heads[0]]
+    probs = torch.softmax(logits, dim=-1)
+    if radi_displacement > 0:
+        probs = decode_displacement(probs, out["displ"])
+    return probs.argmax(dim=-1), probs
+
+
 def make_predict_step(model, *, crop_dim: Optional[int], radi_displacement: int):
     """Inference step: predict(frames, hflip=False) -> (argmax (B, T),
     scores (B, T, C)), softmax scores displacement-decoded when the head
@@ -298,19 +315,11 @@ def make_predict_step(model, *, crop_dim: Optional[int], radi_displacement: int)
     runs on the device of the model's parameters and moves the frames
     there. With the model's ``two_heads`` the scores are head 1's alone,
     (B, T, C1+1) (ref: model/modules.py:416-426)."""
-    two_heads = model.two_heads
 
     @torch.no_grad()
     def predict(frames, hflip: bool = False):
         model.eval()
-        x = augment.eval_preprocess(_on(frames, _device_of(model)), crop_dim, hflip)
-        out = model(x)
-        logits = out["logits"]
-        if two_heads is not None:
-            logits = logits[..., :two_heads[0]]
-        probs = torch.softmax(logits, dim=-1)
-        if radi_displacement > 0:
-            probs = decode_displacement(probs, out["displ"])
-        return probs.argmax(dim=-1), probs
+        return predict_scores(model, _on(frames, _device_of(model)), crop_dim=crop_dim,
+                              radi_displacement=radi_displacement, hflip=hflip)
 
     return predict

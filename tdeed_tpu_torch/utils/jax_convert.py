@@ -68,14 +68,17 @@ def _block(sd: Dict, base: str, p: Mapping, s: Mapping) -> None:
                 sd[f"{base}.se.{fc}.bias"] = _t(node[fc]["bias"])
         elif name == "gs":
             g, gs = node["gs"], s["gs"]["gs"]
-            gate = g["gate_conv"]["conv"]
+            # GSF nests its gate in a bare-conv module (gate_conv/conv/*),
+            # GSM keeps it at gate_conv/* (tdeed_tpu/models/shift.py:54-66)
+            gate = g["gate_conv"].get("conv", g["gate_conv"])
             sd[f"{base}.conv1.gs.conv3D.weight"] = _t(gate["kernel"], (4, 3, 0, 1, 2))
             sd[f"{base}.conv1.gs.conv3D.bias"] = _t(gate["bias"])
             _bn(sd, f"{base}.conv1.gs.bn", g["bn"], gs["bn"])
             for cc in ("channel_conv1", "channel_conv2"):
-                conv = g[cc]["conv"]
-                sd[f"{base}.conv1.gs.{cc}.weight"] = _t(conv["kernel"], (3, 2, 0, 1))
-                sd[f"{base}.conv1.gs.{cc}.bias"] = _t(conv["bias"])
+                if cc in g:  # GSF's fusion convs; GSM has none
+                    conv = g[cc]["conv"]
+                    sd[f"{base}.conv1.gs.{cc}.weight"] = _t(conv["kernel"], (3, 2, 0, 1))
+                    sd[f"{base}.conv1.gs.{cc}.bias"] = _t(conv["bias"])
         else:
             raise KeyError(f"unrecognized backbone entry {base}/{name}")
 

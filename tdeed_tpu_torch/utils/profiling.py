@@ -17,7 +17,7 @@ from __future__ import annotations
 import contextlib
 import os
 import time
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 from torch.profiler import ProfilerActivity
@@ -39,20 +39,22 @@ def bound(moved_bytes: float, ops: float, ops_per_s: float) -> Tuple[float, str]
 
 
 @contextlib.contextmanager
-def trace(logdir: str, device="cuda"):
+def trace(logdir: Optional[str], device="cuda"):
     """Capture a ``torch.profiler`` trace of the enclosed region and yield
     the profiler (``key_averages()`` once the region has ended). CPU
     activity always; CUDA activity (kernel times from CUPTI) when
     ``device`` is a CUDA device, that is, when the traced tensors are on
     the card. On exit the Chrome trace is written to
-    ``<logdir>/trace.json``."""
+    ``<logdir>/trace.json``; with ``logdir`` None, nowhere."""
     activities = [ProfilerActivity.CPU]
     if torch.device(device).type == "cuda":
         activities.append(ProfilerActivity.CUDA)
-    os.makedirs(logdir, exist_ok=True)
+    if logdir is not None:
+        os.makedirs(logdir, exist_ok=True)
     with torch.profiler.profile(activities=activities) as prof:
         yield prof
-    prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
+    if logdir is not None:
+        prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
 
 
 def annotate(name: str):

@@ -1,8 +1,9 @@
 """Guards of the PyTorch port: it never imports JAX, it builds the flagship
-config and the SoccerNet Ball challenge config at full width and takes
-every shipped config, its entry points run on CUDA unless asked for the
-CPU, and it refuses the config values it does not carry yet with the
-ROADMAP.md item that brings them."""
+config and the SoccerNet Ball challenge config at full width, takes every
+shipped config and trains every feature_arch the JAX package builds, its
+entry points run on CUDA unless asked for the CPU, and it refuses the
+config values it does not carry with the ROADMAP.md item that names
+them."""
 
 import dataclasses
 import json
@@ -18,6 +19,7 @@ import torch
 from tdeed_tpu_torch import load_config
 from tdeed_tpu_torch.checkpoint import BEST, save_params
 from tdeed_tpu_torch.cli import evaluate_challenge as challenge_cli
+from tdeed_tpu_torch.cli import export_model as export_cli
 from tdeed_tpu_torch.cli import predict as predict_cli
 from tdeed_tpu_torch.cli import train as train_cli
 from tdeed_tpu_torch.infer.predictor import SpottingPredictor
@@ -43,14 +45,15 @@ def test_importing_every_port_module_leaves_jax_out():
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax'))\n"
         "ref = sorted(m for m in sys.modules if m.split('.')[0] == 'tdeed_tpu')\n"
         "new = [m for m in ('tdeed_tpu_torch.metrics.soccernet', "
-        "'tdeed_tpu_torch.cli.evaluate_challenge') if m not in sys.modules]\n"
+        "'tdeed_tpu_torch.cli.evaluate_challenge', 'tdeed_tpu_torch.infer.export', "
+        "'tdeed_tpu_torch.cli.export_model') if m not in sys.modules]\n"
         "print(len(mods), new, bad, ref)\n"
     )
     out = subprocess.run(
         [sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
         timeout=120, check=True,
     ).stdout.split(" ", 1)
-    assert int(out[0]) >= 47, out  # every module of the slice was imported
+    assert int(out[0]) >= 49, out  # every module of the slice was imported
     assert out[1].strip() == "[] [] []"
 
 
@@ -83,10 +86,6 @@ def test_build_model_defaults_to_cuda_and_never_falls_back(monkeypatch):
     [
         ({"fuse_entry": True}, "fused_block"),
         ({"fuse_shift": True}, "fused_block"),
-        ({"checkpoint_backbone": True}, "checkpoint_backbone"),
-        ({"feature_arch": "rny008_gsm"}, "GSM"),
-        ({"feature_arch": "rny002_gsm"}, "GSM"),
-        ({"feature_arch": "rny002"}, "plain rny002"),
     ],
 )
 def test_build_model_refuses_what_the_port_lacks(override, item):
@@ -94,6 +93,49 @@ def test_build_model_refuses_what_the_port_lacks(override, item):
     with pytest.raises(NotImplementedError, match="ROADMAP.md") as err:
         build_model(cfg, device="cpu")
     assert item in str(err.value)
+
+
+@pytest.mark.parametrize(
+    "arch,checkpoint_backbone",
+    [(a, False) for a in ("rny002", "rny008", "rny002_gsm", "rny008_gsm", "rny002_gsf",
+                          "rny008_gsf")] + [("rny008_gsm", True)],
+)
+def test_build_model_trains_every_feature_arch(arch, checkpoint_backbone):
+    """Every feature_arch the JAX package builds, {rny002, rny008} x
+    {plain, _gsm, _gsf}, and checkpoint_backbone: the trunk, shift and
+    widths the name says, and one train step on the CPU with a finite
+    loss that moves the trunk."""
+    cfg = load_config("FineDiving_small", config_root=str(REPO / "configs"), clip_len=8,
+                      dtype="float32", n_layers=1, feature_arch=arch,
+                      checkpoint_backbone=checkpoint_backbone)
+    torch.manual_seed(0)
+    model = build_model(cfg, device="cpu")
+    trunk = model._features
+    assert trunk.checkpoint_blocks == checkpoint_backbone
+    assert model.feat_dim == (368 if arch.startswith("rny002") else 768)
+    conv1 = trunk.s3["b1"].conv1
+    gs = getattr(conv1, "gs", None)
+    assert type(gs).__name__ == {"gsm": "GSM", "gsf": "GSF", None: "NoneType"}[cfg.shift_mode]
+    assert getattr(trunk.s2["b1"].conv1, "gs", None) is None  # s1/s2 never shift
+    before = trunk.stem.conv.weight.clone()
+    opt, sched = make_optimizer(model.parameters(), 1e-3, 1, 10)
+    step = make_train_step(model, opt, sched, crop_dim=16, num_classes_bg=5, mixup=True,
+                           radi_displacement=2)
+    rng = np.random.default_rng(0)
+    batch = {k: rng.integers(0, 256, (2, 8, 20, 20, 3)).astype(np.uint8) for k in ("frame", "frame2")}
+    batch.update({k: rng.integers(0, 5, (2, 8)) for k in ("label", "label2")})
+    assert np.isfinite(float(step(batch)["loss"]))
+    assert not torch.equal(before, trunk.stem.conv.weight)
+    assert int(trunk.stem.bn.num_batches_tracked) == 1
+
+
+@pytest.mark.parametrize("arch", ["rny004_gsf", "resnet50", "rny002gsm"])
+def test_build_model_rejects_an_arch_the_jax_package_cannot_build(arch):
+    """Parsed as the JAX package parses it: the part before the last '_'
+    must name a trunk it has."""
+    cfg = load_config("FineDiving_small", config_root=str(REPO / "configs"), feature_arch=arch)
+    with pytest.raises(ValueError, match=arch):
+        build_model(cfg, device="cpu")
 
 
 @pytest.mark.parametrize("name", SHIPPED)
@@ -149,20 +191,31 @@ def test_steps_take_two_heads_from_the_model():
         (lambda cfg: SpottingPredictor(cfg, {}, {"a": 1}, n_devices=2, device="cpu"), "DDP"),
         (lambda cfg: SpottingPredictor(cfg, {}, {"a": 1}, two_heads=(5, 18), n_devices=2,
                                        device="cpu"), "DDP"),
-        (lambda cfg: SpottingPredictor(dataclasses.replace(cfg, checkpoint_backbone=True), {},
-                                       {"a": 1}, device="cpu"),
-         "checkpoint_backbone"),
         (lambda cfg: SpottingPredictor(dataclasses.replace(cfg, decoder="native"), {}, {"a": 1},
                                        device="cpu"),
          "native decoder"),
     ],
-    ids=["n_devices", "two_heads-n_devices", "checkpoint_backbone", "native-decoder"],
+    ids=["n_devices", "two_heads-n_devices", "native-decoder"],
 )
 def test_predictor_refuses_what_the_port_lacks(make, item):
     cfg = load_config("FineDiving_small", config_root=str(REPO / "configs"), clip_len=8)
     with pytest.raises(NotImplementedError, match="ROADMAP.md") as err:
         make(cfg)
     assert item in str(err.value)
+
+
+def test_predictor_takes_checkpoint_backbone_and_scores_the_same():
+    """The knob changes nothing in eval: a predictor of a config with
+    checkpoint_backbone gives the same scores from the same weights."""
+    cfg = load_config("FineDiving_small", config_root=str(REPO / "configs"), clip_len=8,
+                      n_layers=1, dtype="float32")
+    torch.manual_seed(0)
+    sd = build_model(cfg, device="cpu").state_dict()
+    frames = np.random.default_rng(0).integers(0, 256, (1, 8, 36, 36, 3), dtype=np.uint8)
+    probs = [SpottingPredictor(dataclasses.replace(cfg, checkpoint_backbone=ck, crop_dim=32), sd,
+                               {f"c{i}": i for i in range(1, 5)}, device="cpu")
+             .predict_fn(frames, True) for ck in (False, True)]
+    assert probs[1].shape == (1, 8, 5) and torch.equal(probs[0], probs[1])
 
 
 def test_predictor_scores_head_1_of_two_heads():
@@ -204,10 +257,8 @@ def _flagship_config(root, **override):
     [
         (["--n_devices", "2"], {}, "DDP"),
         (["--distributed"], {}, "DDP"),
-        ([], {"backbone_ckpt": "/pretrained/rny002"}, "backbone_ckpt"),
-        ([], {"feature_arch": "rny008_gsm"}, "GSM"),
     ],
-    ids=["n_devices", "distributed", "backbone_ckpt", "gsm"],
+    ids=["n_devices", "distributed"],
 )
 def test_train_cli_refuses_what_the_port_lacks_at_startup(tmp_path, argv, override, item):
     """Before it reads a plan or writes anything."""
@@ -240,7 +291,7 @@ def test_challenge_cli_refuses_several_cards_and_other_datasets(tmp_path):
     assert sorted(os.listdir(tmp_path)) == ["configs"]
 
 
-@pytest.mark.parametrize("cli", ["train", "predict", "evaluate_challenge"])
+@pytest.mark.parametrize("cli", ["train", "predict", "evaluate_challenge", "export_model"])
 def test_clis_raise_without_cuda_and_never_fall_back(tmp_path, monkeypatch, cli):
     """No --device: the CUDA device, and without one the RuntimeError of
     build_model (after train's store mode, which needs no device), before
@@ -271,12 +322,16 @@ def test_clis_raise_without_cuda_and_never_fall_back(tmp_path, monkeypatch, cli)
         write_tiny_config(str(tmp_path), fx, store_mode="load")
         with pytest.raises(RuntimeError, match="device='cpu'"):
             train_cli.main(argv + ["--no_wandb"])
-    elif cli == "predict":
+    elif cli in ("predict", "export_model"):
         cfg = load_config("FineDiving_tiny", config_root)
         os.makedirs(cfg.save_dir)
         save_params(os.path.join(cfg.save_dir, BEST), build_model(cfg, device="cpu"))
         with pytest.raises(RuntimeError, match="device='cpu'"):
-            predict_cli.main(argv + ["--videos", "01__01"])
+            if cli == "predict":
+                predict_cli.main(argv + ["--videos", "01__01"])
+            else:
+                export_cli.main(["FineDiving_tiny", str(tmp_path / "artifact"), *argv[2:]])
+        assert not os.path.exists(tmp_path / "artifact")
     else:
         with pytest.raises(RuntimeError, match="device='cpu'"):
             challenge_cli.main(["--model", "SoccerNetBall_challenge2", "--config_root",

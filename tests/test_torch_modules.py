@@ -65,7 +65,7 @@ def test_gated_shift_matches_jax(rng, train):
     x = rng.standard_normal((B * T, 5, 6, c)).astype(np.float32)
     jm = jshift.GatedShift(clip_len=T, mode="gsf", dtype=jnp.float32)
     v = jm.init(jax.random.PRNGKey(1), jnp.asarray(x), False)
-    pm = shift.GatedShift(c, T, net=torch.nn.Identity())
+    pm = shift.GatedShift(c, T, net=torch.nn.Identity(), mode="gsf")
     tree = {"features": {"s1_b1": {"gs": v["params"]}}}
     stats = {"features": {"s1_b1": {"gs": v["batch_stats"]}}}
     pm.load_state_dict(
@@ -98,7 +98,7 @@ def test_yblock_train_forward_and_stats_match_jax(rng, shifted):
     )
     v = jm.init(jax.random.PRNGKey(2), jnp.asarray(x), False)
     want, new_stats = _jax_train(jm, v, jnp.asarray(x))
-    pm = regnet.YBlock(in_w, w, 2, 8, clip_len=T if shifted else None)
+    pm = regnet.YBlock(in_w, w, 2, 8, shift_mode="gsf" if shifted else None, clip_len=T)
     pm.load_state_dict(
         port_state({"features": {"s1_b1": v["params"]}},
                    {"features": {"s1_b1": v["batch_stats"]}}, "_features.s1.b1."),
@@ -129,7 +129,7 @@ def test_trunk_eval_forward_matches_jax(rng):
     want = jax.jit(lambda p, s, x_: jm.apply({"params": p, "batch_stats": s}, x_, False))(
         v["params"], stats, jnp.asarray(x)
     )
-    pm = regnet.RegNetY("rny002", clip_len=T)
+    pm = regnet.RegNetY("rny002", clip_len=T, shift_mode="gsf")
     assert pm.feat_dim == 368
     pm.load_state_dict(
         port_state({"features": v["params"]}, {"features": stats}, "_features."),

@@ -20,8 +20,10 @@ def test_parameter_sets_turn_on_what_they_name():
         assert torch.equal(p[:, factors], sets["sampled"][:, factors])
 
 
-def test_cpu_run_reports_every_set_and_no_device_time():
+def test_cpu_run_reports_every_set_and_no_device_time(monkeypatch, tmp_path):
+    monkeypatch.setattr(tool, "TRACE_DIR", tmp_path / "trace")
     out = tool.main(["--device", "cpu"])
+    assert not (tmp_path / "trace").exists()  # a CPU run writes no trace file
     assert set(out["k1"]) == {"sampled", "all_gates", "none", *tool.GATES}
     assert all(r["kernels"] == [] for r in out["k1"].values())  # no trace without a card
     assert out["train"]["step_device_ms"] == 0.0 and out["train"]["photometric_ms"] == 0.0

@@ -56,6 +56,15 @@ def test_trace_writes_a_chrome_trace_with_the_named_region(tmp_path):
     assert any(e.get("name") == "probe_region" for e in events)
 
 
+def test_trace_without_a_logdir_writes_nothing(tmp_path, monkeypatch):
+    monkeypatch.chdir(tmp_path)
+    with profiling.trace(None, "cpu") as prof:
+        with profiling.annotate("probe_region"):
+            torch.ones(8, 8).sum()
+    assert "probe_region" in {e.key for e in prof.key_averages()}
+    assert not any(tmp_path.iterdir())
+
+
 def test_time_fn_on_the_cpu_calls_warmup_plus_iters_times():
     calls = []
     sec = profiling.time_fn(lambda v: calls.append(v), 7, device="cpu", warmup=2, iters=5)

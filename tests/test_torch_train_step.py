@@ -80,7 +80,8 @@ def _inputs():
     return batch, draws
 
 
-def _jax_step(monkeypatch, batch, draws, mixup=True, variables=None, acc_grad_iter=1):
+def _jax_step(monkeypatch, batch, draws, mixup=True, variables=None, acc_grad_iter=1,
+              feature_arch="rny002_gsf", checkpoint_backbone=False):
     """One JAX train step with the injected draws (the same for every
     micro-batch), from ``variables`` or a fresh init; returns (variables,
     loss, state)."""
@@ -106,7 +107,8 @@ def _jax_step(monkeypatch, batch, draws, mixup=True, variables=None, acc_grad_it
     monkeypatch.setattr(jaug, "sample_mixup_lam", lambda k, b: jnp.asarray(draws["lam"]))
     monkeypatch.setattr(jkernel, "train_preprocess_pallas", preprocess)
 
-    jm = jtdeed.TDEED(num_classes=N_CLASSES, clip_len=T, dtype=jnp.float32, **MODEL)
+    jm = jtdeed.TDEED(num_classes=N_CLASSES, clip_len=T, dtype=jnp.float32,
+                      feature_arch=feature_arch, checkpoint_backbone=checkpoint_backbone, **MODEL)
     v = variables or jax.jit(jm.init, static_argnums=2)(
         jax.random.PRNGKey(0), jnp.zeros((B, T, CROP, CROP, 3)), False
     )
@@ -141,12 +143,14 @@ def _jax_augmented(batch, draws, mixup=True):
     return torch.from_numpy(out).to(torch.bfloat16)
 
 
-def _port_step(variables, batch, draws, dtype, augmented=None, mixup=True, acc_grad_iter=1):
+def _port_step(variables, batch, draws, dtype, augmented=None, mixup=True, acc_grad_iter=1,
+               shift_mode="gsf", checkpoint_backbone=False):
     """One port train step from the JAX weights, with the same draws for
     every micro-batch; ``augmented`` (one tensor per micro-batch) replaces
     the port's photometric kernel output. Returns (model, loss,
     gradients)."""
-    pm = TDEED(N_CLASSES, T, dtype=dtype, **MODEL)
+    pm = TDEED(N_CLASSES, T, dtype=dtype, shift_mode=shift_mode,
+               checkpoint_backbone=checkpoint_backbone, **MODEL)
     sd = params_from_jax(variables["params"], variables["batch_stats"])
     if dtype == torch.float64:
         pm = pm.double()

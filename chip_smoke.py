@@ -83,11 +83,28 @@ Phases, each fatal on failure:
      passes, 256^2 stored frames), loaded by a fresh ExportedPredictor and
      held against the eager predict step (probs within 1e-3): export
      seconds, artifact bytes, median ms of 10 calls of each.
+  10. data parallelism (tdeed_tpu_torch.parallel) at the flagship's full
+     width (FineDiving_small, batch 8 x clip 100, 256^2 uint8 cropped to
+     224, bf16, mixup): 10a: 3 train steps over 2 spawned ranks, 4 clips
+     each (NCCL on cuda:0 and cuda:1 with two cards, else gloo with both
+     on cuda:0), held at step 0 against the one-process step on the
+     global batch with the same weights and draws (loss, running
+     statistics, averaged gradients, updated weights, within DP_BOUNDS;
+     beside them the one-process step's distance from its own rerun and
+     from its run on the batch's halves interleaved, the noise of another
+     order of sums, and how far a half-size batch moves the eval scores), one photometric launch per rank per step, each
+     rank's and the one-process step times; then the same at fp32, cut to
+     DP_FP32, for a tight check of the arithmetic; 10b: cli.train --distributed at world
+     size 1 over NCCL (the torchrun environment set here) over the
+     phase-7 dataset, 1 epoch of 1 step, then --resume for a second with
+     val mAP: bare checkpoint keys, from_run loads checkpoint_best; 10c:
+     with two cards spot() over n_devices=2 against 1, bit for bit; with
+     one, a line saying why it did not run.
 
 The line before the last is a JSON object with each kernel's route, the
-TPU kernel it replaces, its launches on its paths (phases 5-7, phase 8
-and phase 9 for the photometric kernel, each counted from 0, and their
-sum; the
+TPU kernel it replaces, its launches on its paths (phases 5-7, phase 8,
+phase 9 and phase 10 for the photometric kernel, each counted from 0, and
+their sum; the
 probe tool's run for the probe kernels), its
 largest error against the plain version, its time, the plain version's,
 the one PyTorch call's that computes the same function (null where there
@@ -149,6 +166,32 @@ PHASE9_STEPS = 3  # train steps of each phase-9 trunk, and of each 9b setting
 EXPORT_CLIPS = 4  # the exported programs' batch (phase 9c)
 EXPORT_CALLS = 10
 KERNEL_SOURCES = ("photometric", "probe")
+# phase 10: data parallelism at the flagship's full width
+DP_RANKS = 2
+DP_STEPS = 3
+DP_TIMEOUT_S = 600  # the ranks' processes, spawned, built and stepped
+# 10a's bounds for the 2-rank step 0 against the one-process step on the
+# global batch. The two differ only in the order of sums: BatchNorm's
+# moments are the mean of the ranks' fp32 means, the gradients the mean of
+# theirs. bf16: that can move a channel's bf16 scale by one rounding, and
+# such differences carry through the trunk (2^-8 = 3.9e-3 relative each);
+# Adam's first step moves each weight by lr(0) = 8e-6 times the sign of
+# its gradient, so a weight either matches (within a quarter step) or took
+# the other sign where its gradient is below the noise. The gradient
+# distance may also reach DP_FLOOR_RATIO times the larger of the
+# one-process step's distance from its own rerun and from its run on the
+# batch's halves interleaved: the noise of this step under another order.
+# fp32 (cut to DP_FP32 = (global batch, frame, crop), clip 100, the
+# agreement phase's size): the tight check of the arithmetic, at the CPU
+# tests' bounds (tests/test_torch_ddp.py).
+DP_FP32 = (4, 72, 64)
+DP_BOUNDS = {
+    "bf16": {"loss": 1e-2, "stats": 2e-2, "grads": 1e-1, "weights": 0.9},
+    "fp32": {"loss": 1e-4, "stats": 1e-4, "grads": 5e-2, "weights": 0.99},
+}
+DP_FLOOR_RATIO = 2.0
+# 10b: the CLI's epoch over the phase-7 dataset: 800 frames = 8 clips = 1 step
+DP_CLI_CONFIG = dict(CLI_CONFIG, epoch_num_frames=800, num_epochs=1)
 # fp32 operations per pixel of the photometric chain (each add, sub, mul,
 # div, min, max and floor once; the blur as two separable 5-tap passes), for
 # the gates that are on; a gate that is off needs none: /255 and the
@@ -668,7 +711,7 @@ def spot_phase(torch, cfg, model, smi):
             passes, n_batches = (2 if tta else 1), -(-n_windows // bs)
             x = torch.zeros((bs, cfg.clip_len, FRAME, FRAME, 3), dtype=torch.uint8,
                             device=pred.device)
-            fwd_ms = _time_ms(torch, lambda: pred._predict(x, False), 5)
+            fwd_ms = _time_ms(torch, lambda: pred._scores([x], False), 5)
             log(f"[spot] {mode}, where the time goes: the window reads alone (host, cold "
                 f"frame cache) {_read_windows(pred, frame_dir, video) * 1e3:.1f} ms; the "
                 f"forward {fwd_ms:.2f} ms per batch of {bs} on the card, "
@@ -1501,6 +1544,366 @@ def export_phase(torch, smi):
     torch.cuda.empty_cache()
 
 
+def _dp_configs():
+    """Phase 10a's two settings: the flagship at full width (bf16), and an
+    fp32 one cut to DP_FP32 (the DP arithmetic held tightly)."""
+    from tdeed_tpu_torch import load_config
+
+    flagship = load_config("FineDiving_small", config_root=CONFIGS)
+    b, hw, crop = DP_FP32
+    fp32 = load_config("FineDiving_small", config_root=CONFIGS, dtype="float32",
+                       batch_size=b, crop_dim=crop)
+    return {"bf16": (flagship, FRAME), "fp32": (fp32, hw)}
+
+
+def _dp_global_batch(torch, cfg, hw):
+    """The global batch from a seeded CPU generator: every process makes
+    the same one and keeps its rows."""
+    return _batch(torch, cfg.batch_size, cfg.clip_len, hw, cfg.num_classes_bg,
+                  torch.Generator().manual_seed(SEED + 21), "cpu")
+
+
+def _dp_steps(torch, cfg, device, batch, distributed, steps, perm=None):
+    """``steps`` train steps (seeded weights and draws) on ``batch``: the
+    losses, each step's host time, the photometric launches, and after
+    step 0 the averaged gradients and the model's state on the host.
+    ``perm`` reorders the batch's rows and their draws alike: the same
+    step, with its sums over the batch in another order."""
+    from tdeed_tpu_torch.kernels.augment import photometric
+    from tdeed_tpu_torch.models.tdeed import build_model
+    from tdeed_tpu_torch.parallel import mesh
+    from tdeed_tpu_torch.train.schedule import make_optimizer
+    from tdeed_tpu_torch.train.step import StepDraws, make_train_step
+
+    torch.manual_seed(SEED)
+    model = build_model(cfg, device=device)
+    if distributed:
+        mesh.distribute(model)
+    opt, sched = make_optimizer(model.parameters(), cfg.learning_rate, 100, 10_000)
+    step = make_train_step(
+        model, opt, sched, crop_dim=cfg.crop_dim, num_classes_bg=cfg.num_classes_bg,
+        mixup=cfg.mixup, radi_displacement=cfg.radi_displacement, seed=SEED,
+    )
+    batch = {k: v.to(device) for k, v in batch.items()}
+    if perm is not None:
+        batch = {k: v[perm] for k, v in batch.items()}
+    out = {"losses": [], "times": []}
+    launches = photometric.launches
+    for i in range(steps):
+        draws = step.draw(batch)
+        if perm is not None:
+            draws = [StepDraws(d.crop, d.lam[perm], d.aug[perm],
+                               {k: m[perm] for k, m in d.dropout_keep.items()}) for d in draws]
+        torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        out["losses"].append(float(step(batch, draws)["loss"]))
+        torch.cuda.synchronize(device)
+        out["times"].append(time.perf_counter() - t0)
+        if i == 0:  # copies: on the CPU .cpu() would alias what the next step updates
+            out["grads"] = {n: p.grad.detach().to("cpu", torch.float32, copy=True)
+                            for n, p in model.named_parameters()}
+            out["state"] = {k: v.detach().to("cpu", copy=True)
+                            for k, v in model.state_dict().items()}
+    out["launches"] = photometric.launches - launches
+    return out
+
+
+def _dp_rank(rank, world, port, backend, root):
+    """Phase 10a's rank: joins the group, runs each setting's steps on its
+    rows of the global batch and saves what _dp_steps returns."""
+    import torch
+
+    from tdeed_tpu_torch.parallel import mesh
+
+    # the parent's math (device_phase): a spawned process starts with
+    # cuDNN's TF32 on, which would run the fp32 convs at 10 mantissa bits
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    device = mesh.init_distributed(f"cuda:{rank if backend == 'nccl' else 0}", rank, world,
+                                   f"tcp://localhost:{port}", backend=backend)
+    try:
+        out = {}
+        for name, (cfg, hw) in _dp_configs().items():
+            rows = mesh.global_rows(cfg.batch_size, 1, rank, world)
+            batch = {k: v[rows] for k, v in _dp_global_batch(torch, cfg, hw).items()}
+            out[name] = _dp_steps(torch, cfg, device, batch, True,
+                                  DP_STEPS if name == "bf16" else 1)
+        torch.save(out, os.path.join(root, f"rank{rank}.pt"))
+    finally:
+        mesh.shutdown()
+
+
+def _dp_halves_floor(torch, cfg, hw, device):
+    """The largest difference of the eval-mode predict step's scores on the
+    global batch from its scores on the batch's two halves, each half in
+    its own call: rows are independent in eval, so this is how far a
+    batch of half the size moves the convolutions' results (cuDNN may
+    pick other algorithms for another batch)."""
+    from tdeed_tpu_torch.models.tdeed import build_model
+    from tdeed_tpu_torch.train.step import make_predict_step
+
+    torch.manual_seed(SEED)
+    predict = make_predict_step(build_model(cfg, device=device), crop_dim=cfg.crop_dim,
+                                radi_displacement=cfg.radi_displacement)
+    frames = _dp_global_batch(torch, cfg, hw)["frame"].to(device)
+    half = cfg.batch_size // 2
+    whole = predict(frames)[1]
+    parts = torch.cat([predict(frames[:half])[1], predict(frames[half:])[1]])
+    return float((whole - parts).abs().max())
+
+
+def _dp_distance(torch, got, want, lr0):
+    """(loss rel, running statistics' max err relative to max(1, |b|),
+    gradient relative L2, share of weights within a quarter of Adam's first
+    step, the 3 leaves with most of the gradient difference, BN counters
+    equal) of two _dp_steps results at step 0."""
+    loss_rel = abs(got["losses"][0] - want["losses"][0]) / abs(want["losses"][0])
+    stats = max(float(((got["state"][k].double() - v.double()).abs()
+                       / v.double().abs().clamp_min(1.0)).max())
+                for k, v in want["state"].items() if "running" in k)
+    sq = {k: float((got["grads"][k].double() - v.double()).square().sum())
+          for k, v in want["grads"].items()}
+    den = sum(float(v.double().square().sum()) for v in want["grads"].values())
+    top = sorted(sq, key=sq.get, reverse=True)[:3]
+    close = total = 0
+    for k, v in want["state"].items():
+        if v.is_floating_point() and "running" not in k:
+            close += int(((got["state"][k].double() - v.double()).abs() <= 0.25 * lr0).sum())
+            total += v.numel()
+    counters = all(torch.equal(got["state"][k], v) for k, v in want["state"].items()
+                   if not v.is_floating_point())
+    return (loss_rel, stats, math.sqrt(sum(sq.values()) / den), close / total,
+            ", ".join(f"{k} {sq[k] / max(sum(sq.values()), 1e-300):.0%}" for k in top),
+            counters)
+
+
+def dp_steps_phase(torch, smi):
+    """Phase 10a: the flagship step over DP_RANKS ranks against the one
+    process step on the global batch, and an fp32 step cut to DP_FP32 the
+    same way; returns the ranks' photometric launches."""
+    import tempfile
+
+    import torch.multiprocessing as mp
+    from torch.multiprocessing.spawn import ProcessException
+
+    from tdeed_tpu_torch.parallel import mesh
+
+    configs = _dp_configs()
+    dev = torch.device("cuda", 0)
+    one, floors, halves = {}, {}, {}
+    for name, (cfg, hw) in configs.items():
+        halves[name] = _dp_halves_floor(torch, cfg, hw, dev)
+        batch = _dp_global_batch(torch, cfg, hw)
+        one[name] = _dp_steps(torch, cfg, dev, batch, False, DP_STEPS if name == "bf16" else 1)
+        # the noise of this step: the same step again, and on the batch's
+        # halves interleaved (clip i of each half side by side), which
+        # changes every partial sum of its reductions, as the ranks' split
+        # does (swapping the halves would only swap two subtrees)
+        half = cfg.batch_size // 2
+        perm = [i + h for i in range(half) for h in (0, half)]
+        floors[name] = [_dp_steps(torch, cfg, dev, batch, False, 1),
+                        _dp_steps(torch, cfg, dev, batch, False, 1, perm)]
+    torch.cuda.empty_cache()
+    backend = "nccl" if torch.cuda.device_count() >= DP_RANKS else "gloo"
+    where = ("cuda:0 and cuda:1" if backend == "nccl"
+             else f"cuda:0 for both ({torch.cuda.device_count()} card)")
+    os.makedirs(REPO / "build", exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=REPO / "build") as root:
+        t0 = time.perf_counter()
+        procs = mp.start_processes(_dp_rank, args=(DP_RANKS, mesh.free_port(), backend, root),
+                                   nprocs=DP_RANKS, join=False, start_method="spawn")
+        try:
+            while not procs.join(timeout=1.0):
+                if time.perf_counter() - t0 > DP_TIMEOUT_S:
+                    fail(f"the {DP_RANKS} ranks did not finish in {DP_TIMEOUT_S} s")
+        except ProcessException as e:
+            fail(f"a data-parallel rank failed: {e}")
+        finally:
+            for p in procs.processes:
+                if p.is_alive():
+                    p.kill()
+        wall = time.perf_counter() - t0
+        ranks = [torch.load(os.path.join(root, f"rank{r}.pt")) for r in range(DP_RANKS)]
+
+    for name in configs:
+        outs = [r[name] for r in ranks]
+        if not all(math.isfinite(v) for o in outs for v in o["losses"]):
+            fail(f"non-finite data-parallel loss ({name}): {[o['losses'] for o in outs]}")
+        if any(o["losses"] != outs[0]["losses"] for o in outs):
+            fail(f"the ranks report different global losses ({name})")
+        for k, v in outs[0]["state"].items():
+            if not torch.equal(v, outs[1]["state"][k]):
+                fail(f"the ranks hold different {k} after a step ({name})")
+    if any((r["bf16"]["launches"], r["fp32"]["launches"]) != (DP_STEPS, 1) for r in ranks):
+        fail(f"the ranks launched the photometric kernel "
+             f"{[(r['bf16']['launches'], r['fp32']['launches']) for r in ranks]} times in "
+             f"({DP_STEPS}, 1) steps")
+    cfg = configs["bf16"][0]
+    lr0 = cfg.learning_rate * 0.01
+    ms = lambda ts: ", ".join(f"{t * 1e3:.1f}" for t in ts)  # noqa: E731
+    log(f"[dp] 10a: FineDiving_small ({cfg.feature_arch}, {cfg.dtype}, mixup) batch "
+        f"{cfg.batch_size} x clip {cfg.clip_len}, {FRAME}^2 uint8 -> crop {cfg.crop_dim}, over "
+        f"{DP_RANKS} ranks ({backend} on {where}), {cfg.batch_size // DP_RANKS} clips a rank; "
+        f"step times (ms) rank 0: {ms(ranks[0]['bf16']['times'])}; rank 1: "
+        f"{ms(ranks[1]['bf16']['times'])}; one process on the global batch: "
+        f"{ms(one['bf16']['times'])}; the ranks' processes {wall:.1f} s from spawn to exit, "
+        f"the fp32 step included; {DP_STEPS} photometric launches on each rank; {smi}")
+    ok = True
+    for name, (c, hw) in configs.items():
+        got = _dp_distance(torch, ranks[0][name], one[name], lr0)
+        again, mixed = (_dp_distance(torch, f, one[name], lr0) for f in floors[name])
+        log(f"[dp] 10a {name} (batch {c.batch_size} x clip {c.clip_len}, {hw}^2 -> crop "
+            f"{c.crop_dim}), step 0 over {DP_RANKS} ranks against one process: loss rel "
+            f"{got[0]:.3g}, running statistics {got[1]:.3g}, gradients {got[2]:.3g} relative L2 "
+            f"(most in {got[4]}), weights within a quarter of Adam's first step {got[3]:.4%}, "
+            f"BN counters equal {got[5]}; the one-process step run again: {again[0]:.3g}, "
+            f"{again[1]:.3g}, {again[2]:.3g}, {again[3]:.4%}; on its halves interleaved: "
+            f"{mixed[0]:.3g}, {mixed[1]:.3g}, {mixed[2]:.3g} (most in {mixed[4]}), "
+            f"{mixed[3]:.4%}; the eval scores of the batch's halves in two calls against "
+            f"one call: max abs diff {halves[name]:.3g}; losses over ranks {', '.join(f'{v:.4f}' for v in ranks[0][name]['losses'])}, "
+            f"one process {', '.join(f'{v:.4f}' for v in one[name]['losses'])}; {smi}")
+        bounds = DP_BOUNDS[name]
+        grads = max(bounds["grads"], DP_FLOOR_RATIO * max(again[2], mixed[2]))
+        ok &= (got[0] <= bounds["loss"] and got[1] <= bounds["stats"]
+               and got[2] <= grads and got[3] >= bounds["weights"] and got[5])
+    if not ok:
+        fail(f"the data-parallel step disagrees with the one-process step beyond {DP_BOUNDS}")
+    return sum(r[name]["launches"] for r in ranks for name in configs)
+
+
+def dp_cli_phase(torch, smi):
+    """Phase 10b: the training CLI with --distributed at world size 1 over
+    NCCL on the card (the torchrun environment set here), over the phase-7
+    dataset: 1 epoch of 1 step, then --resume for a second with val mAP;
+    the checkpoint's keys are bare and it loads into from_run. Returns the
+    photometric launches."""
+    import tempfile
+
+    import numpy as np
+
+    from tdeed_tpu_torch import load_config
+    from tdeed_tpu_torch.cli import train as train_cli
+    from tdeed_tpu_torch.data import frames as frame_io
+    from tdeed_tpu_torch.infer.predictor import SpottingPredictor
+    from tdeed_tpu_torch.kernels.augment import photometric
+    from tdeed_tpu_torch.parallel import mesh
+
+    load = _TimedLoad()
+    get_decoder = frame_io.get_decoder
+    frame_io.get_decoder = lambda kind="auto": load
+    env = {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0", "MASTER_ADDR": "localhost",
+           "MASTER_PORT": str(mesh.free_port())}
+    saved_env = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        with tempfile.TemporaryDirectory(dir=REPO / "build") as root:
+            frame_dir, data_root = _write_cli_dataset(root, np.random.default_rng(SEED + 5))
+            with open(os.path.join(CONFIGS, "FineDiving", "FineDiving_small.json")) as fp:
+                raw = json.load(fp)
+            raw.update(frame_dir=frame_dir, save_dir=os.path.join(root, "save"),
+                       store_dir=os.path.join(root, "store"), **DP_CLI_CONFIG)
+            config_root = os.path.join(root, "configs")
+            os.makedirs(os.path.join(config_root, "FineDiving"))
+
+            def write_config(**kw):
+                with open(os.path.join(config_root, "FineDiving", "FineDiving_small.json"),
+                          "w") as fp:
+                    json.dump(dict(raw, **kw), fp)
+
+            argv = ["--model", "FineDiving_small", "--config_root", config_root,
+                    "--data_root", data_root, "--no_wandb", "--distributed"]
+            write_config(store_mode="store")
+            try:
+                train_cli.main(argv)
+                fail("store mode did not exit")
+            except SystemExit as e:
+                if e.code not in (0, None):
+                    fail(f"store mode exited with {e.code}")
+            write_config(store_mode="load")
+            launches = photometric.launches
+            t0 = time.perf_counter()
+            first = train_cli.main(argv)
+            t1 = time.perf_counter()
+            write_config(store_mode="load", num_epochs=2)
+            resumed = train_cli.main(argv + ["--resume"])
+            t2 = time.perf_counter()
+            launches = photometric.launches - launches
+            got = [(s["start_step"], s["end_step"], s["world"]) for s in (first, resumed)]
+            if got != [(0, 1, 1), (1, 2, 1)]:
+                fail(f"--distributed ran (start, end, world) {got}, not (0, 1, 1), (1, 2, 1)")
+            if launches < 2:
+                fail(f"--distributed launched the photometric kernel {launches} times in 2 steps")
+            cfg = load_config("FineDiving_small", config_root)
+            run_dir = cfg.save_dir
+            with open(os.path.join(run_dir, "train_meta.json")) as fp:
+                history = json.load(fp)["history"]
+            if [r["epoch"] for r in history] != [0, 1] or history[1]["val_mAP"] is None:
+                fail(f"--distributed wrote the history {history}")
+            last = torch.load(os.path.join(run_dir, "checkpoint_last"), map_location="cpu")
+            keys = list(last["model"])
+            if any(k.startswith("module.") for k in keys) or last["step"] != 2:
+                fail(f"checkpoint_last holds step {last['step']}, keys {keys[:3]}...")
+            pred = SpottingPredictor.from_run("FineDiving_small", config_root, data_root)
+            best = torch.load(os.path.join(run_dir, "checkpoint_best"), map_location="cpu")
+            if not all(torch.equal(v.cpu(), best[k]) for k, v in pred.model.state_dict().items()):
+                fail("from_run did not load the --distributed run's checkpoint_best")
+            del pred
+            log(f"[dp] 10b: cli.train --distributed at world size 1 (NCCL, torchrun "
+                f"environment set here) over the phase-7 dataset: 1 epoch of 1 step in "
+                f"{(t1 - t0) * 1e3:.1f} ms with its val loss, test tail and saves, then "
+                f"--resume for step 2 with val mAP {history[1]['val_mAP']:.4f} in "
+                f"{(t2 - t1) * 1e3:.1f} ms; {launches} photometric launches; checkpoint keys "
+                f"bare; from_run loads checkpoint_best; {smi}")
+            return launches
+    finally:
+        frame_io.get_decoder = get_decoder
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def dp_serve_phase(torch, smi):
+    """Phase 10c: spot() over 2 cards against one, bit for bit; with one
+    card it says so and runs nothing."""
+    import tempfile
+
+    import numpy as np
+
+    from tdeed_tpu_torch import load_config
+    from tdeed_tpu_torch.infer.predictor import SpottingPredictor
+    from tdeed_tpu_torch.models.tdeed import build_model
+
+    count = torch.cuda.device_count()
+    if count < 2:
+        log(f"[dp] 10c: not run on the card: spot() over n_devices=2 needs 2 CUDA devices and "
+            f"this machine has {count}; the split is held to one device bit for bit on the "
+            f"CPU (tests/test_torch_ddp_serving.py, 2 replicas); {smi}")
+        return
+    cfg = load_config("FineDiving_small", config_root=CONFIGS)
+    torch.manual_seed(SEED)
+    sd = build_model(cfg, device="cuda").state_dict()
+    classes = {f"class{i}": i for i in range(1, cfg.num_classes + 1)}
+    with tempfile.TemporaryDirectory(dir=REPO / "build") as root:
+        frame_dir = os.path.join(root, "frames")
+        _write_video(frame_dir, "01__01", SPOT_FRAMES, np.random.default_rng(SEED + 4))
+        for tta in (False, True):
+            out, walls = [], []
+            for n in (1, 2):
+                pred = SpottingPredictor(cfg, sd, classes, device="cuda", n_devices=n)
+                pred.decoder = np.load
+                t0 = time.perf_counter()
+                out.append(pred.spot(frame_dir, "01__01", hflip_tta=tta, nms="none",
+                                     threshold=0.0))
+                walls.append(time.perf_counter() - t0)
+            if out[0] != out[1]:
+                fail(f"spot() over 2 cards differs from one card (tta {tta})")
+            log(f"[dp] 10c: spot() {'tta' if tta else 'plain'} over 2 cards equals one card bit "
+                f"for bit ({len(out[0])} scores); wall {walls[0] * 1e3:.1f} ms on one card, "
+                f"{walls[1] * 1e3:.1f} ms on 2; {smi}")
+
+
 def main() -> int:
     import torch
 
@@ -1546,11 +1949,24 @@ def main() -> int:
     if phase9_launches != PHASE9_STEPS * (len(PHASE9_ARCHS) + 2):  # 9a, 9b off and on
         fail(f"phase 9 launched the photometric kernel {phase9_launches} times")
     export_phase(torch, smi)
-    k1["launches"] = flagship_launches + snb_launches + phase9_launches
+    torch.cuda.empty_cache()
+    photometric.launches = 0
+    rank_launches = dp_steps_phase(torch, smi)  # counted in the ranks' own processes
+    dp_cli_phase(torch, smi)
+    phase10_launches = photometric.launches + rank_launches
+    # a launch a step: the ranks' (DP_STEPS bf16 and 1 fp32 each), the one
+    # process's (bf16: DP_STEPS, its rerun and its interleaved run; fp32: 3)
+    # and the CLI's 2
+    if phase10_launches != DP_RANKS * (DP_STEPS + 1) + (DP_STEPS + 2) + 3 + 2:
+        fail(f"phase 10 launched the photometric kernel {phase10_launches} times")
+    dp_serve_phase(torch, smi)
+    k1["launches"] = flagship_launches + snb_launches + phase9_launches + phase10_launches
     k1["launches_by_path"] = {"phases 5-7 (FineDiving_small)": flagship_launches,
                               "phase 8 (SoccerNetBall_challenge2)": snb_launches,
                               "phase 9 (GSM and plain trunks, checkpoint_backbone)":
-                                  phase9_launches}
+                                  phase9_launches,
+                              "phase 10 (2 data-parallel ranks, the one-process step, "
+                              "cli.train --distributed)": phase10_launches}
     k1["max_abs_err"] = max(k1["max_abs_err"], snb["step_max_abs_err"])
     k1.update({f"snb_{k}": v for k, v in snb.items()})
 

@@ -34,6 +34,8 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
+from tdeed_tpu_torch.parallel.mesh import unwrap
+
 BEST = "checkpoint_best"
 LAST = "checkpoint_last"
 META = "train_meta.json"
@@ -71,8 +73,9 @@ def restore_state(path: str, template, map_location="cpu"):
 
 
 def save_params(path: str, model: torch.nn.Module) -> None:
-    """Weights-only checkpoint (the reference's state_dict equivalent)."""
-    sd = model.state_dict()
+    """Weights-only checkpoint (the reference's state_dict equivalent), of
+    the bare module under a data-parallel wrapper: no ``module.`` keys."""
+    sd = unwrap(model).state_dict()
     _replace_with(path, lambda tmp: torch.save(sd, tmp))
 
 

@@ -12,11 +12,12 @@ for submission.
 
 Usage:
     python -m tdeed_tpu_torch.cli.evaluate_challenge --model SoccerNetBall_challenge2
-        [--split challenge] [--device cuda|cpu]
+        [--split challenge] [--device cuda|cpu] [--n_devices N]
 
 It runs on the CUDA device unless ``--device cpu`` is given; without a
-card it raises, it never falls back. ``--n_devices`` above 1 is refused
-(ROADMAP.md, DDP).
+card it raises, it never falls back. ``--n_devices N`` splits each window
+batch over replicas on cuda:0..N-1, the batch rounded up to a multiple of
+N as the JAX CLI rounds it.
 """
 
 from __future__ import annotations
@@ -35,7 +36,8 @@ def get_args(argv=None) -> argparse.Namespace:
     parser.add_argument("--data_root", default="data")
     parser.add_argument("--split", default="challenge")
     parser.add_argument("--n_devices", type=int, default=None,
-                        help="more than 1 is refused: one card (ROADMAP.md, DDP)")
+                        help="split each window batch over replicas on cuda:0..N-1 "
+                             "(N on the CPU with --device cpu)")
     parser.add_argument("--device", default="cuda",
                         help="where the model runs (default: the CUDA device)")
     return parser.parse_args(argv)
@@ -49,15 +51,14 @@ def main(argv=None) -> Dict:
 
     from tdeed_tpu_torch.cli.train import labels_root_for, seed_everything
     from tdeed_tpu_torch.config import load_config
-    from tdeed_tpu_torch.models.tdeed import refuse
+    from tdeed_tpu_torch.parallel import mesh
 
     seed_everything(args.seed)  # ref: evaluate_tdeed_challenge.py:38-41
     cfg = load_config(args.model, args.config_root)
     if cfg.dataset != "soccernetball":
         # ref: evaluate_tdeed_challenge.py:47
         raise ValueError(f"challenge evaluation takes soccernetball, not {cfg.dataset!r}")
-    if args.n_devices is not None and args.n_devices > 1:
-        refuse(f"--n_devices {args.n_devices} (inference over several cards)", "DDP")
+    mesh.serving_devices(args.device, args.n_devices)  # too many cards: raise before any read
 
     from tdeed_tpu_torch.data.loader import FrameCache
     from tdeed_tpu_torch.data.registry import get_spec
@@ -66,8 +67,8 @@ def main(argv=None) -> Dict:
     from tdeed_tpu_torch.infer.windows import VideoWindows
 
     # the run's best checkpoint; a config with ``pretrain`` scores with head 1
-    pred = SpottingPredictor.from_run(args.model, args.config_root,
-                                      data_root=args.data_root, device=args.device)
+    pred = SpottingPredictor.from_run(args.model, args.config_root, data_root=args.data_root,
+                                      device=args.device, n_devices=args.n_devices)
     save_dir = cfg.save_dir or os.path.join("checkpoints", cfg.model)
     spec = get_spec(cfg.dataset)
     labels_root = labels_root_for(args.data_root, cfg.dataset)
@@ -93,6 +94,9 @@ def main(argv=None) -> Dict:
         test=True,
         augment=False,
         labels_root=labels_root,
+        # over N replicas the predictor's batch, a multiple of N (JAX
+        # cli/evaluate_challenge.py:82-90)
+        batch_size=pred.batch_size if len(pred.devices) > 1 else None,
     )
     seconds = time.time() - t0
     print("CORRECTLY FINISHED CHALLENGE INFERENCE")

@@ -7,13 +7,14 @@ extracted video and writes an events JSON, building the model once for the
 whole batch of videos. It restores the run's ``checkpoint_best`` (a run
 trained with ``pretrain`` spots with the double head's head 1) and runs
 on the CUDA device unless ``--device cpu`` is given; without a card it
-raises, it never falls back. ``--n_devices`` above 1 is refused
-(ROADMAP.md, DDP).
+raises, it never falls back. ``--n_devices N`` splits each window batch
+over replicas on cuda:0..N-1 (``SpottingPredictor(n_devices=N)``).
 
 Usage:
     python -m tdeed_tpu_torch.cli.predict --model FineDiving_small \\
         [--frame_dir /path/frames] [--videos v1 v2 ... | --split test.json] \\
         --out events.json [--nms snms] [--threshold 0.01] [--device cuda|cpu]
+        [--n_devices N]
 """
 
 from __future__ import annotations
@@ -38,7 +39,8 @@ def get_args(argv=None):
     p.add_argument("--nms", default="snms", choices=["nms", "snms", "none"])
     p.add_argument("--threshold", type=float, default=0.01)
     p.add_argument("--n_devices", type=int, default=None,
-                   help="more than 1 is refused: one card (ROADMAP.md, DDP)")
+                   help="split each window batch over replicas on cuda:0..N-1 "
+                        "(N on the CPU with --device cpu)")
     p.add_argument("--device", default="cuda",
                    help="where the model runs (default: the CUDA device)")
     return p.parse_args(argv)

@@ -1,4 +1,4 @@
-"""Training CLI of the port (port of tdeed_tpu/cli/train.py, on one card).
+"""Training CLI of the port (port of tdeed_tpu/cli/train.py).
 
 Orchestration parity (ref: train_tdeed.py:90-315): seed -> config ->
 store/load clip plans -> model/optimizer -> epoch loop with best-checkpoint
@@ -14,11 +14,27 @@ official scorers (``evaluate_sn_official``, ``evaluate_snb``).
 Usage:
     python -m tdeed_tpu_torch.cli.train --model FineDiving_small
         [--acc_grad_iter N] [--seed S] [--resume] [--no_wandb]
-        [--device cuda|cpu]
+        [--device cuda|cpu] [--n_devices N]
+    torchrun --nproc_per_node N -m tdeed_tpu_torch.cli.train
+        --model FineDiving_small --distributed [...]
 
 It runs on the CUDA device unless ``--device cpu`` is given; without a
-card it raises, it never falls back. What the port does not carry yet is
-refused at startup, before any training, naming its ROADMAP.md item.
+card it raises, it never falls back.
+
+Data parallelism (parallel/mesh.py): ``--n_devices N`` starts N ranks
+itself, on cuda:0..N-1 (or N gloo ranks on the CPU with ``--device cpu``);
+``--distributed`` joins a torchrun launch as the rank its environment
+names (RANK, WORLD_SIZE, LOCAL_RANK, MASTER_ADDR, MASTER_PORT), on
+cuda:LOCAL_RANK. Both then run the same code: NCCL on the card, gloo on
+the CPU, no fallback. ``batch_size`` is the global batch; each rank loads
+its rows of every global micro-batch, so it must be a multiple of
+acc_grad_iter x ranks. BatchNorm statistics, the loss and the gradients
+are the global batch's. Rank 0 alone writes the checkpoints, the meta
+file, the logs and the interrupt save, and runs the val mAP and the test
+tail while the other ranks wait; every rank reads the same checkpoint on
+``--resume``, so a run resumes on any number of ranks. Each rank runs its
+own loader threads and its own frame cache of ``decode_cache_mb``.
+Store mode writes the plans from one process and exits 0.
 """
 
 from __future__ import annotations
@@ -34,7 +50,8 @@ import numpy as np
 import torch
 
 from tdeed_tpu_torch.config import load_config
-from tdeed_tpu_torch.models.tdeed import check_supported, refuse
+from tdeed_tpu_torch.models.tdeed import check_supported
+from tdeed_tpu_torch.parallel import mesh
 
 EVAL_SPLITS = ["test"]  # ref: train_tdeed.py:30
 
@@ -51,7 +68,8 @@ def get_args(argv=None) -> argparse.Namespace:
     parser.add_argument("--resume", action="store_true",
                         help="resume from checkpoint_last in save_dir")
     parser.add_argument("--n_devices", type=int, default=None,
-                        help="more than 1 is refused: one card (ROADMAP.md, DDP)")
+                        help="train data-parallel over N ranks this command starts: "
+                             "cuda:0..N-1, or N CPU ranks with --device cpu")
     parser.add_argument("--no_wandb", action="store_true")
     parser.add_argument(
         "--profile_dir", default=None,
@@ -59,7 +77,8 @@ def get_args(argv=None) -> argparse.Namespace:
              "directory (trace.json, for Perfetto or chrome://tracing)",
     )
     parser.add_argument("--distributed", action="store_true",
-                        help="refused: one card (ROADMAP.md, DDP)")
+                        help="join a torchrun launch as one data-parallel rank "
+                             "(cuda:LOCAL_RANK, or the CPU with --device cpu)")
     parser.add_argument("--device", default="cuda",
                         help="where the model runs (default: the CUDA device)")
     return parser.parse_args(argv)
@@ -82,13 +101,21 @@ def labels_root_for(data_root: str, dataset: str) -> Optional[str]:
 
 
 def refuse_waiting(cfg, args) -> None:
-    """Raise NotImplementedError for what the port's training does not
-    carry yet, naming the ROADMAP.md item that brings it: the CLI's own
-    refusals, then the model's (check_supported)."""
-    if args.distributed:
-        refuse("--distributed (multi-process data parallelism)", "DDP")
-    if args.n_devices is not None and args.n_devices > 1:
-        refuse(f"--n_devices {args.n_devices} (data parallelism over cards)", "DDP")
+    """Raise, before anything is read or written, for a launch the CLI
+    cannot run: --distributed with --n_devices, more ranks than cards, a
+    batch that does not split into acc_grad_iter micro-batches over the
+    ranks (ValueError each); then for what the model does not carry
+    (check_supported)."""
+    n = args.n_devices or 1
+    if args.n_devices is not None and args.n_devices < 1:
+        raise ValueError(f"--n_devices must be at least 1, got {args.n_devices}")
+    if args.distributed and n > 1:
+        raise ValueError("--distributed takes its ranks from torchrun; do not pass --n_devices")
+    if n > 1 and torch.device(args.device).type == "cuda":
+        count = torch.cuda.device_count() if torch.cuda.is_available() else 0
+        if n > count:
+            raise ValueError(f"--n_devices {n} but this machine has {count} CUDA device(s)")
+    mesh.global_rows(cfg.batch_size, cfg.acc_grad_iter, 0, n)  # raises if B does not split
     check_supported(cfg)
 
 
@@ -152,16 +179,84 @@ def build_samplers(cfg, args, classes, decoder, classes2=None, cache=None):
 
 
 def main(argv=None) -> Dict:
-    """Run the CLI. Returns what the run measured: the step it started
-    from and ended at, per epoch the optimizer steps and the seconds of
-    training, of waiting for batches inside it, of the val loss, the val
-    mAP and the checkpoint save, then the test evaluation's seconds and
-    the frame cache's statistics, and the SoccerNet scorers' results
-    ("soccernet", by split) where the dataset has them."""
+    """Run the CLI. Returns what the run measured (rank 0's, over several
+    ranks): the step it started from and ended at, per epoch the optimizer
+    steps and the seconds of training, of waiting for batches inside it,
+    of the val loss, the val mAP and the checkpoint save, then the test
+    evaluation's seconds and the frame cache's statistics, and the
+    SoccerNet scorers' results ("soccernet", by split) where the dataset
+    has them."""
     args = get_args(argv)
-    seed_everything(args.seed)
     cfg = load_config(args.model, args.config_root, acc_grad_iter=args.acc_grad_iter)
     refuse_waiting(cfg, args)
+    if args.distributed:
+        rank, world, local_rank = mesh.env_rank()
+        mesh.global_rows(cfg.batch_size, cfg.acc_grad_iter, rank, world)
+        if cfg.store_mode == "store":
+            if rank:  # rank 0 writes the plans
+                sys.exit(0)
+            return run(args, cfg)
+        device = "cpu" if torch.device(args.device).type == "cpu" else f"cuda:{local_rank}"
+        return run(args, cfg, rank, world, device, "env://")
+    if (args.n_devices or 1) > 1 and cfg.store_mode != "store":
+        return spawn(argv, args.n_devices)
+    return run(args, cfg)
+
+
+def spawn(argv, n: int) -> Dict:
+    """Run the CLI as ``n`` ranks in processes started here (spawned, so
+    each imports the port afresh), joined over tcp://localhost, and return
+    rank 0's result. A rank that raises ends the others, and the error is
+    raised here. CPU ranks share this process's threads."""
+    import torch.multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    results = ctx.SimpleQueue()
+    procs = mp.start_processes(
+        _spawned_rank, args=(argv, n, mesh.free_port(), torch.get_num_threads(), results),
+        nprocs=n, join=False, start_method="spawn",
+    )
+    stats = None
+    while not procs.join(timeout=0.5):  # raises if a rank failed
+        if not results.empty():
+            stats = results.get()
+    if not results.empty():
+        stats = results.get()
+    return stats
+
+
+def _spawned_rank(rank: int, argv, world: int, port: int, threads: int, results) -> None:
+    args = get_args(argv)
+    cfg = load_config(args.model, args.config_root, acc_grad_iter=args.acc_grad_iter)
+    device = args.device
+    if torch.device(device).type == "cpu":
+        torch.set_num_threads(max(1, threads // world))
+    else:
+        device = f"cuda:{rank}"
+    stats = run(args, cfg, rank, world, device, f"tcp://localhost:{port}")
+    if rank == 0:
+        results.put(stats)
+
+
+def run(args, cfg, rank: int = 0, world: int = 1, device=None,
+        init_method: Optional[str] = None) -> Dict:
+    """Train and evaluate as ``rank`` of ``world`` on ``device`` (default
+    ``args.device``): one process without ``init_method``, else a rank of
+    the group formed there (of one rank too), left again at the end."""
+    if init_method is None:
+        return _train(args, cfg, args.device if device is None else device)
+    device = mesh.init_distributed(device, rank, world, init_method)
+    try:
+        return _train(args, cfg, device, rank, world, mesh.host_group())
+    finally:
+        mesh.shutdown()
+
+
+def _train(args, cfg, device, rank: int = 0, world: int = 1, waits=None) -> Dict:
+    """The run itself; see ``run``. ``waits`` is the host group the other
+    ranks wait in while rank 0 evaluates, None without a process group."""
+    seed_everything(args.seed)
+    main_rank = rank == 0
 
     from tdeed_tpu_torch.checkpoint import BEST, LAST, CheckpointManager, load_backbone, save_state
     from tdeed_tpu_torch.data import frames as frame_io
@@ -198,13 +293,28 @@ def main(argv=None) -> Dict:
     )
 
     # --- model / optimizer ---------------------------------------------
-    model = build_model(cfg, two_heads, device=args.device)
+    model = build_model(cfg, two_heads, device=device)
     if cfg.backbone_ckpt:
         # ImageNet-pretrained trunk (ref: model/model.py:37-46 builds it with
         # timm pretrained=True); here a timm state dict file
         load_backbone(model, cfg.backbone_ckpt)
         print(f"Loaded pretrained backbone <- {cfg.backbone_ckpt}")
     device = next(model.parameters()).device
+    if waits is not None:
+        # every rank starts from rank 0's weights and statistics, and takes
+        # its BatchNorm moments over the global batch
+        for t in model.state_dict().values():
+            torch.distributed.broadcast(t, src=0)
+        mesh.distribute(model)
+        if cfg.pallas_augment is not False and device.type == "cuda":
+            # one nvcc for all ranks: rank 0 builds the kernel, the others
+            # load the library it wrote (kernels/build.py)
+            from tdeed_tpu_torch.kernels.build import load
+
+            if main_rank:
+                load("photometric")
+            mesh.barrier(waits)
+            load("photometric")
     crop = cfg.crop_dim
     if crop is None and cfg.acc_grad_iter == 1:
         # Full-frame (crop_dim -1) training, e.g. SoccerNet Ball at 796x448.
@@ -225,6 +335,7 @@ def main(argv=None) -> Dict:
         model, opt, sched, crop_dim=crop, num_classes_bg=cfg.num_classes_bg,
         mixup=cfg.mixup, radi_displacement=cfg.radi_displacement,
         acc_grad_iter=cfg.acc_grad_iter, seed=args.seed + 7,
+        pallas_augment=cfg.pallas_augment,
     )
     val_step = make_val_step(
         model, crop_dim=crop, num_classes_bg=cfg.num_classes_bg,
@@ -238,16 +349,24 @@ def main(argv=None) -> Dict:
         return predict_step(frames, hflip)[1]
 
     # --- data loaders ---------------------------------------------------
+    # Each rank loads its rows of the same global batches (sample RNGs keyed
+    # by global row), so the ranks' union is the one-process epoch: the
+    # train rows a slice of every micro-batch, the val rows a contiguous
+    # shard (the val step takes the whole batch at once).
+    train_rows = mesh.global_rows(cfg.batch_size, cfg.acc_grad_iter, rank, world)
+    val_rows = mesh.global_rows(cfg.batch_size, 1, rank, world)
     train_loader = BatchLoader(
-        train_sampler, cfg.batch_size, cfg.dataset_len,
+        train_sampler, len(train_rows), cfg.dataset_len,
         num_workers=max(4, cfg.num_workers), seed=args.seed,
+        global_batch_size=cfg.batch_size, rows=train_rows,
     )
     val_loader = BatchLoader(
-        val_sampler, cfg.batch_size, cfg.dataset_len // 4,  # ref: datasets.py:49
+        val_sampler, len(val_rows), cfg.dataset_len // 4,  # ref: datasets.py:49
         num_workers=max(4, cfg.num_workers), seed=args.seed + 100_000,
+        global_batch_size=cfg.batch_size, rows=val_rows,
     )
     val_data_frames = None
-    if cfg.criterion == "map" and cfg.dataset != "soccernet":
+    if main_rank and cfg.criterion == "map" and cfg.dataset != "soccernet":
         val_data_frames = VideoWindows(
             cfg.dataset,
             os.path.join(args.data_root, cfg.dataset, f"{cfg.val_split}.json"),
@@ -261,11 +380,11 @@ def main(argv=None) -> Dict:
         )
 
     ckpt = CheckpointManager(cfg.save_dir or os.path.join("checkpoints", cfg.model))
-    logger = MetricsLogger(ckpt.save_dir, cfg, enable_wandb=not args.no_wandb)
+    logger = MetricsLogger(ckpt.save_dir, cfg, enable_wandb=not args.no_wandb and main_rank)
 
     start_epoch = 0
     resume_batch = 0
-    if not args.resume and not cfg.only_test:
+    if not args.resume and not cfg.only_test and main_rank:
         # Fresh run in a reused save_dir: a stale best_criterion/history
         # would suppress checkpoint_best for the whole run and the final
         # eval would score the OLD weights.
@@ -280,8 +399,9 @@ def main(argv=None) -> Dict:
         if steps_per_epoch > 0 and steps_done > 0:
             start_epoch = steps_done // steps_per_epoch
             resume_batch = steps_done % steps_per_epoch
-        print(f"Resumed at epoch {start_epoch}, batch {resume_batch} "
-              f"(step {steps_done})")
+        if main_rank:
+            print(f"Resumed at epoch {start_epoch}, batch {resume_batch} "
+                  f"(step {steps_done})")
     best = ckpt.load_meta().get("best_criterion") if args.resume else None
     if best is None:
         best = float("inf") if cfg.criterion == "loss" else 0.0
@@ -291,7 +411,7 @@ def main(argv=None) -> Dict:
         # copies overlap device compute
         return device_prefetch(iterator, device, depth=2)
 
-    profiled = {"done": args.profile_dir is None}
+    profiled = {"done": args.profile_dir is None or not main_rank}
     stats = {"start_epoch": start_epoch, "start_batch": resume_batch,
              "start_step": train_step.step, "epochs": []}
 
@@ -352,12 +472,12 @@ def main(argv=None) -> Dict:
                 if is_best:
                     best = val_loss
             elif epoch >= cfg.start_val_epoch:  # ref: train_tdeed.py:182-199
-                if cfg.dataset == "soccernet":
+                if cfg.dataset == "soccernet" and main_rank:
                     val_map = soccernet.val_map_sn(
                         predict_fn, cfg, args.data_root, labels_root,
                         decoder=decoder, cache=frame_cache,
                     )
-                else:
+                elif main_rank:
                     val_map = evaluate(
                         predict_fn,
                         val_data_frames,
@@ -368,6 +488,9 @@ def main(argv=None) -> Dict:
                         augment=False,
                         labels_root=labels_root,
                     )
+                if waits is not None:  # rank 0 alone evaluates; every rank takes its mAP
+                    mesh.barrier(waits)
+                    val_map = mesh.broadcast_object(val_map, waits)
                 is_best = val_map > best
                 if is_best:
                     best = val_map
@@ -381,20 +504,22 @@ def main(argv=None) -> Dict:
                 "train_time": t1 - t0,
                 "val_time": t2 - t1,
             }
-            logger.log_epoch(record)
-            print(
-                f"[epoch {epoch}] train {train_loss:.4f} val {val_loss:.4f}"
-                + (f" val_mAP {val_map:.4f}" if val_map is not None else "")
-                + (" *best*" if is_best else "")
-            )
-            ckpt.save_epoch(train_step, epoch, record, is_best, best)
+            if main_rank:
+                logger.log_epoch(record)
+                print(
+                    f"[epoch {epoch}] train {train_loss:.4f} val {val_loss:.4f}"
+                    + (f" val_mAP {val_map:.4f}" if val_map is not None else "")
+                    + (" *best*" if is_best else "")
+                )
+                ckpt.save_epoch(train_step, epoch, record, is_best, best)
             t4 = time.time()
             frames_per_s = cfg.batch_size * cfg.clip_len * n_steps / (t1 - t0)
-            print(f"[epoch {epoch}] {n_steps} optimizer steps in {t1 - t0:.3f} s "
-                  f"({frames_per_s:.0f} train frames/s with the loader, "
-                  f"{waited / (t1 - t0):.1%} of it waiting for batches); "
-                  f"val loss {t2 - t1:.3f} s, val mAP {t3 - t2:.3f} s, "
-                  f"checkpoint {t4 - t3:.3f} s")
+            if main_rank:
+                print(f"[epoch {epoch}] {n_steps} optimizer steps in {t1 - t0:.3f} s "
+                      f"({frames_per_s:.0f} train frames/s with the loader over {world} "
+                      f"rank(s), {waited / (t1 - t0):.1%} of it waiting for batches); "
+                      f"val loss {t2 - t1:.3f} s, val mAP {t3 - t2:.3f} s, "
+                      f"checkpoint {t4 - t3:.3f} s")
             stats["epochs"].append({
                 "epoch": epoch, "steps": n_steps, "train_s": t1 - t0,
                 "wait_s": waited, "val_loss_s": t2 - t1, "val_map_s": t3 - t2,
@@ -411,12 +536,18 @@ def main(argv=None) -> Dict:
         except KeyboardInterrupt:
             # Graceful interrupt: persist the in-flight state so --resume
             # continues from here (the reference restarts from scratch).
-            print("interrupted: saving checkpoint_last for --resume")
-            save_state(os.path.join(ckpt.save_dir, LAST), train_step)
+            if main_rank:
+                print("interrupted: saving checkpoint_last for --resume")
+                save_state(os.path.join(ckpt.save_dir, LAST), train_step)
             raise
     stats["end_step"] = train_step.step
+    stats["world"] = world
 
-    # --- test ----------------------------------------------------------
+    # --- test: rank 0 alone, the others wait ------------------------------
+    if not main_rank:
+        mesh.barrier(waits)
+        logger.finish()
+        return stats
     if os.path.exists(os.path.join(ckpt.save_dir, BEST)):
         model.load_state_dict(ckpt.restore_best(), strict=True)
     else:
@@ -463,6 +594,8 @@ def main(argv=None) -> Dict:
     stats["test_s"] = time.time() - t0
     stats["frame_cache"] = frame_cache.stats() if frame_cache is not None else None
     logger.finish()
+    if waits is not None:
+        mesh.barrier(waits)
     print("CORRECTLY FINISHED TRAINING AND INFERENCE")
     return stats
 

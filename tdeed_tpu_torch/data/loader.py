@@ -22,7 +22,7 @@ import random
 import threading
 from collections import OrderedDict
 from concurrent.futures import ThreadPoolExecutor
-from typing import Callable, Dict, Iterator, List, Optional
+from typing import Callable, Dict, Iterator, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -192,6 +192,7 @@ class BatchLoader:
         seed: int = 1,
         global_batch_size: Optional[int] = None,
         shard_offset: int = 0,
+        rows: Optional[Sequence[int]] = None,
     ):
         """batch_size is the LOCAL batch this loader materializes.
 
@@ -200,12 +201,23 @@ class BatchLoader:
         of all hosts' loaders reproduces the single-host epoch bit-for-bit
         (host h materializes rows [h*local, (h+1)*local) of every global
         batch). Single-host: defaults make both equal to batch_size/0.
+
+        ``rows`` (the port's own) names the global rows of each batch that
+        this loader materializes, in order, in place of the contiguous
+        [shard_offset, shard_offset + batch_size): a data-parallel rank
+        takes a slice of every micro-batch (parallel.mesh.global_rows).
         """
         self.sampler = sampler
         self.batch_size = batch_size
         self.global_batch_size = global_batch_size or batch_size
         self.shard_offset = shard_offset
-        assert self.shard_offset + batch_size <= self.global_batch_size
+        if rows is None:
+            rows = range(shard_offset, shard_offset + batch_size)
+        self.rows = list(rows)
+        if len(self.rows) != batch_size or not all(
+                0 <= r < self.global_batch_size for r in self.rows):
+            raise ValueError(f"rows {self.rows} are not {batch_size} rows of a global "
+                             f"batch of {self.global_batch_size}")
         # Sample RNGs are keyed base*1e6+3 + batch*1009 + global_row: rows
         # must stay below the batch multiplier or keys collide across
         # neighbouring batches.
@@ -253,11 +265,8 @@ class BatchLoader:
                         if stop.is_set():
                             break
                         rngs = [
-                            random.Random(
-                                base_seed * 1_000_003 + b * 1009
-                                + self.shard_offset + i
-                            )
-                            for i in range(self.batch_size)
+                            random.Random(base_seed * 1_000_003 + b * 1009 + row)
+                            for row in self.rows
                         ]
                         futs = [pool.submit(self.sampler.sample, r) for r in rngs]
                         if not put_or_stop(_collate([f.result() for f in futs])):

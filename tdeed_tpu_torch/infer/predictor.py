@@ -13,6 +13,16 @@ the JAX class: the host loop ``infer.evaluate.predict_windows``
 that the host reads once, at the end of the video (``_spot_device``, the
 default). Both add each window's scores in window order, so they give the
 same bits, and two calls give the same bits.
+
+With ``n_devices`` N > 1 the predictor keeps a replica of the model on
+each of N devices (cuda:0..N-1, or N times the CPU) and splits every
+window batch into N equal slices, run together and gathered in window
+order on the first device (parallel/mesh.py, the counterpart of the JAX
+class's sharded predict). The window batch rounds up to a multiple of N,
+and under the TTA it is N windows, one a device, in place of 1. Eval rows
+are independent, so the scores are one device's, bit for bit, wherever a
+slice's shape on a replica gives its rows the same arithmetic as on one
+device.
 """
 
 from __future__ import annotations
@@ -34,7 +44,8 @@ from tdeed_tpu_torch.infer.nms import (
     non_maximum_suppression,
     soft_non_maximum_suppression,
 )
-from tdeed_tpu_torch.models.tdeed import build_model, refuse, two_heads_for
+from tdeed_tpu_torch.models.tdeed import build_model, two_heads_for
+from tdeed_tpu_torch.parallel import mesh
 from tdeed_tpu_torch.train.step import make_predict_step
 from tdeed_tpu_torch.utils.jax_convert import params_from_jax
 
@@ -98,20 +109,23 @@ class SpottingPredictor:
       state_dict: the model's weights, as ``TDEED.state_dict()`` names them
         (``from_jax_params`` takes the JAX package's trees instead).
       classes: {name: id} with ids 1..N (0 = background).
-      batch_size: windows per predict call without TTA (with TTA, 1).
+      batch_size: windows per predict call without TTA (with TTA, 1),
+        rounded up to a multiple of ``n_devices``.
       device: where the model runs; the CUDA device unless the caller asks
         for the CPU. Without a card, "cuda" raises RuntimeError.
       two_heads: (C1+1, C2+1) for a model trained with the FC2 double
         head; events come from head 1 alone, whose classes ``classes``
         names.
-    ``n_devices > 1`` is refused with the ROADMAP.md item that brings it.
+      n_devices: replicas to split each window batch over: cuda:0..N-1
+        (more than the machine's cards raises), or N on the CPU.
     """
 
     def __init__(self, cfg, state_dict, classes: Dict[str, int], *,
                  batch_size: int = INFERENCE_BATCH_SIZE, device="cuda",
                  two_heads=None, n_devices: Optional[int] = None):
-        if n_devices is not None and n_devices > 1:
-            refuse(f"n_devices={n_devices} (serving over several devices)", "DDP")
+        self.devices = mesh.serving_devices(device, n_devices)
+        n = len(self.devices)
+        batch_size = -(-batch_size // n) * n
         self.cfg = cfg
         self.spec = get_spec(cfg.dataset)
         self.classes = classes
@@ -126,15 +140,15 @@ class SpottingPredictor:
         self._cache = None
         if getattr(cfg, "decode_cache_mb", 0) > 0:
             self._cache = FrameCache(cfg.decode_cache_mb << 20)
-        self.model = build_model(cfg, two_heads, device=device)
+        self.model = build_model(cfg, two_heads, device=self.devices[0])
         self.model.load_state_dict(state_dict, strict=True)
         self.model.eval()
         self.device = next(self.model.parameters()).device
-        self._predict = make_predict_step(
-            self.model, crop_dim=cfg.crop_dim,
-            radi_displacement=cfg.radi_displacement,
-        )
-        self._stage = _PinnedStager(self.device)
+        self._predicts = [
+            make_predict_step(m, crop_dim=cfg.crop_dim, radi_displacement=cfg.radi_displacement)
+            for m in mesh.replicate(self.model, self.devices)
+        ]
+        self._stages = [_PinnedStager(d) for d in self.devices]
 
     # -- construction -----------------------------------------------------
 
@@ -160,8 +174,20 @@ class SpottingPredictor:
     def predict_fn(self, frames: np.ndarray, hflip: bool) -> torch.Tensor:
         """Scores (B, T, C+1) fp32 on the model's device for a
         (B, T, H, W, 3) uint8 window batch, staged through the pinned
-        buffers: the ``predict_fn`` of ``infer.evaluate.evaluate``."""
-        return self._predict(self._stage(frames), hflip)[1]
+        buffers: the ``predict_fn`` of ``infer.evaluate.evaluate``. B must
+        be a multiple of ``n_devices``."""
+        return self._scores(self._stage(frames), hflip)
+
+    def _stage(self, frames: np.ndarray) -> List[torch.Tensor]:
+        """The batch's slices, one a replica, each on its device."""
+        bounds = mesh.shard_bounds(len(frames), len(self.devices))
+        return [stage(frames[a:b]) for stage, (a, b) in zip(self._stages, bounds)]
+
+    def _scores(self, parts: List[torch.Tensor], hflip: bool) -> torch.Tensor:
+        """Each replica's scores of its slice, all launched before any is
+        read, gathered in order on the first device."""
+        return mesh.gather([p(x, hflip)[1] for p, x in zip(self._predicts, parts)],
+                           self.device)
 
     def _spot_device(self, batches, t_len: int, bs: int, tta: bool):
         """Aggregate one video's windows on the model's device; the host
@@ -178,10 +204,14 @@ class SpottingPredictor:
         so the model sees the host path's shapes, and only its ``n`` valid
         windows are added: the padded rows are what the JAX program's valid
         mask zeroes. Each window's slice is added on its own, in window
-        order. Rows of one batch overlap (by 3/4 of a window), and
-        ``index_add_``/``scatter_add_`` on CUDA add them with atomics in an
-        order that changes from run to run; in window order the fp32 sums
-        are the host loop's, bit for bit. Support: under TTA each pass
+        order, and under the TTA a window's two passes one after the
+        other, so the sums do not depend on how many windows a batch
+        holds: N replicas (batch N under the TTA) add what one device
+        (batch 1) adds. The host loop adds a batch's passes in turn, the
+        same order at batch 1. Rows of one batch overlap (by 3/4 of a
+        window), and ``index_add_``/``scatter_add_`` on CUDA add them with
+        atomics in an order that changes from run to run; in window order
+        the fp32 sums are the host loop's, bit for bit. Support: under TTA each pass
         counts every row; otherwise only rows with a nonzero summed score
         (the displacement decode leaves unclaimed rows zero).
         """
@@ -201,11 +231,13 @@ class SpottingPredictor:
                     axis=0,
                 )
             x = self._stage(frames)
+            outs = []
             for hflip in passes:
-                probs = self._predict(x, hflip)[1].float()
-                rows = None if tta else (probs[:n].sum(dim=2) != 0).int()
-                for i, clip in enumerate(batch):
-                    start = int(clip["start"]) + clip_len  # slack offset
+                probs = self._scores(x, hflip).float()
+                outs.append((probs, None if tta else (probs[:n].sum(dim=2) != 0).int()))
+            for i, clip in enumerate(batch):
+                start = int(clip["start"]) + clip_len  # slack offset
+                for probs, rows in outs:
                     scores_buf[start:start + clip_len] += probs[i]
                     support_buf[start:start + clip_len] += 1 if rows is None else rows[i]
         scores = scores_buf[clip_len:clip_len + t_len].cpu().numpy()
@@ -261,8 +293,9 @@ class SpottingPredictor:
 
         t_len = math.ceil(num_frames / stride)
         starts = self._windows(num_frames)
-        # TTA mirrors the reference's batch-1 protocol (ref: util/eval.py:32)
-        bs = 1 if hflip_tta else self.batch_size
+        # TTA mirrors the reference's batch-1 protocol (ref: util/eval.py:32),
+        # one window a device
+        bs = len(self.devices) if hflip_tta else self.batch_size
 
         def batches():
             for ofs in range(0, len(starts), bs):

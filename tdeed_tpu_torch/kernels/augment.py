@@ -344,12 +344,25 @@ def photometric(frames: torch.Tensor, params: torch.Tensor) -> torch.Tensor:
 photometric.launches = 0
 
 
+def _staged(frames: torch.Tensor) -> torch.Tensor:
+    """uint8 frames as they are; the float mixup blend rounded to bf16."""
+    return frames if frames.dtype == torch.uint8 else frames.to(torch.bfloat16)
+
+
 def train_preprocess(frames: torch.Tensor, params: torch.Tensor) -> torch.Tensor:
     """The training step's augmentation (the JAX package's
     train_preprocess_pallas after its crop): frames (B, T, H, W, 3) uint8,
     or the float mixup blend 0..255, which is staged as bf16; params
     (B, 16) from sample_params with the flip gate in slot 14. Returns
-    standardized bf16 (B, T, H, W, 3)."""
-    if frames.dtype != torch.uint8:
-        frames = frames.to(torch.bfloat16)
+    standardized bf16 (B, T, H, W, 3). ``photometric``: the kernel on a
+    CUDA tensor, the plain chain on a CPU one."""
+    frames = _staged(frames)
     return photometric(frames.contiguous(), params.to(frames.device).contiguous())
+
+
+def train_preprocess_plain(frames: torch.Tensor, params: torch.Tensor) -> torch.Tensor:
+    """train_preprocess through the plain chain on any device, the kernel
+    never launched (the config's ``pallas_augment: false``): the same bf16
+    staging of the blend, then ``photometric_reference``."""
+    frames = _staged(frames)
+    return photometric_reference(frames, params.to(frames.device))

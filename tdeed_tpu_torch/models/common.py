@@ -13,8 +13,11 @@ from __future__ import annotations
 import contextlib
 
 import torch
+import torch.distributed as dist
 import torch.nn as nn
 import torch.nn.functional as F
+
+from tdeed_tpu_torch.parallel import mesh
 
 
 def _cast(p, dtype):
@@ -66,20 +69,36 @@ def gelu_exact(x):
 
 
 class _BatchMoments(torch.autograd.Function):
-    """Per-channel E[x] and E[x^2] in fp32 (or wider) over every dim but 1.
+    """Per-channel E[x] and E[x^2] in fp32 (or wider) over every dim but 1,
+    over the global batch of ``group`` when it has more than one rank.
 
     Autograd over ``x.float()`` would keep an fp32 copy of every normalized
     activation for the backward pass (twice the bf16 activation itself).
     This keeps only ``x`` and recomputes the fp32 view in the backward,
-    with the same gradient: d/dx = (g_mean + 2 x g_sq) / n."""
+    with the same gradient: d/dx = (g_mean + 2 x g_sq) / n.
+
+    Over W ranks of equal shards (parallel/mesh.py) the forward averages
+    the W local moments (one all-reduce of both), the counterpart of the
+    JAX step's moments over its sharded global batch. Each rank then
+    differentiates its own loss L_r, and the step averages the parameter
+    gradients over the ranks, which is the gradient of the mean of the
+    L_r. The moments feed every rank's loss, so the backward sums the W
+    incoming (g_mean, g_sq) (a second all-reduce) and divides by the
+    global count n W: rank r's d/dx is then d(sum_s L_s)/dx_r, as in the
+    local gradients of the other layers."""
 
     @staticmethod
-    def forward(ctx, x):
+    def forward(ctx, x, group=None):
         dims = [d for d in range(x.ndim) if d != 1]
         xf = x.to(acc_dtype(x))
-        mean = xf.mean(dims)
-        sq = xf.square().mean(dims)
+        mean, sq = xf.mean(dims), xf.square().mean(dims)
+        world = mesh.world(group)
+        if world > 1:
+            moments = torch.stack([mean, sq])
+            dist.all_reduce(moments, group=group)
+            mean, sq = (moments / world).unbind(0)
         ctx.save_for_backward(x)
+        ctx.group, ctx.world = group, world
         return mean, sq
 
     @staticmethod
@@ -87,9 +106,13 @@ class _BatchMoments(torch.autograd.Function):
         (x,) = ctx.saved_tensors
         shape = [1] * x.ndim
         shape[1] = x.shape[1]
-        n = x.numel() // x.shape[1]
+        n = x.numel() // x.shape[1] * ctx.world
+        if ctx.world > 1:
+            grads = torch.stack([g_mean, g_sq])
+            dist.all_reduce(grads, group=ctx.group)
+            g_mean, g_sq = grads[0], grads[1]
         g = g_mean.view(shape) + 2.0 * x.to(acc_dtype(x)) * g_sq.view(shape)
-        return (g / n).to(x.dtype)
+        return (g / n).to(x.dtype), None
 
 
 class SplitBatchNorm(nn.Module):
@@ -102,6 +125,13 @@ class SplitBatchNorm(nn.Module):
     the old value (torch's 0.1) and the *biased* variance, which is why
     plain nn.BatchNorm2d (unbiased running variance) is not used. Buffer
     names are torch's, so reference checkpoints load unchanged.
+
+    With a ``process_group`` of more than one rank (set by
+    parallel.mesh.distribute) the training statistics are the global
+    batch's: every rank normalises with the same moments and writes the
+    same running statistics. Eval mode never communicates.
+    nn.SyncBatchNorm is not used either: it keeps the unbiased running
+    variance and runs in one precision.
     """
 
     momentum = 0.9  # flax convention: weight of the old running value
@@ -112,6 +142,7 @@ class SplitBatchNorm(nn.Module):
         # False while a checkpointed block recomputes its forward in the
         # backward pass (frozen_running_stats): the step already wrote them
         self.update_stats = True
+        self.process_group = None
         self.weight = nn.Parameter(torch.ones(num_features))
         self.bias = nn.Parameter(torch.zeros(num_features))
         self.register_buffer("running_mean", torch.zeros(num_features))
@@ -122,7 +153,7 @@ class SplitBatchNorm(nn.Module):
 
     def forward(self, x):
         if self.training:
-            mean, sq = _BatchMoments.apply(x)
+            mean, sq = _BatchMoments.apply(x, self.process_group)
             var = sq - mean.square()
             if self.update_stats:
                 with torch.no_grad():

@@ -8,11 +8,20 @@ torch.nn.functional.cross_entropy semantics (ref: model/model.py:208-211,
         sum_i w[y_i] * nll_i / sum_i w[y_i]
   * soft targets with class weights -> plain mean over items of
         -sum_c w_c * t_c * log p_c
+
+Over W data-parallel ranks of equal shards, the train step averages each
+rank's loss and gradients. That gives the global batch's value exactly for
+every plain mean here: the soft CE, displacement_mse, and double_head_ce
+(sum over clips / B). Only the hard CE's weighted mean divides by a sum
+over the batch, which weighted_ce_hard takes over the process group.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
+
+from tdeed_tpu_torch.parallel import mesh
 
 
 def class_weights(num_classes_bg: int, fg_weight: float = 5.0,
@@ -23,12 +32,25 @@ def class_weights(num_classes_bg: int, fg_weight: float = 5.0,
     return w
 
 
-def weighted_ce_hard(logits, labels, weights):
-    """logits (N, C) fp32, labels (N,) int, weights (C,): weighted mean."""
+def weighted_ce_hard(logits, labels, weights, group=None):
+    """logits (N, C) fp32, labels (N,) int, weights (C,): weighted mean.
+
+    With a process ``group`` of W > 1 ranks (parallel/mesh.py), each
+    holding an equal shard of the global batch, it returns W * (local sum
+    of w * nll) / (global sum of w): the mean of the W ranks' values is
+    then the global batch's weighted mean, and so is the mean of their
+    gradients. The local sum of w alone would weight each rank's frames by
+    its own foreground count."""
     logp = torch.log_softmax(logits, dim=-1)
     nll = -logp.gather(-1, labels[:, None].long())[:, 0]
     w = weights[labels.long()]
-    return (w * nll).sum() / w.sum()
+    total = w.sum()
+    world = mesh.world(group)
+    if world > 1:
+        total = total.detach().clone()
+        dist.all_reduce(total, group=group)
+        return (w * nll).sum() * world / total
+    return (w * nll).sum() / total
 
 
 def weighted_ce_soft(logits, target, weights):

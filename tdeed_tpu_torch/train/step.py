@@ -26,6 +26,20 @@ the batch carries a ``dataset`` id in {1, 2}; a head-2 clip's labels are
 offset by C1+1 into the two-head label space, mixup blends over all
 C1+1 + C2+1 classes, and each clip's loss is its own head's
 (``losses.double_head_ce``; tdeed_tpu/train/step.py:103-148).
+
+Data parallelism (parallel/mesh.py): a model that ``distribute`` gave a
+process group of W ranks takes its BatchNorm moments over the global
+micro-batch. Each rank passes the step its own rows of the global batch
+(``mesh.global_rows``), draws the global micro-batch's random values from
+(seed, step) and keeps its rows of them, so W ranks draw what one process
+draws; the hard CE divides by the global weight sum; the gradients and
+the loss are averaged over the ranks once per optimizer step, after the
+last micro-batch. The val step's loss is the global batch's.
+
+``pallas_augment`` False runs the plain photometric chain on the model's
+device in place of the kernel (``train_preprocess_plain``); None and True
+launch the kernel on a CUDA device. On the CPU every setting runs the
+plain chain.
 """
 
 from __future__ import annotations
@@ -36,9 +50,14 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from tdeed_tpu_torch.kernels.augment import sample_params, train_preprocess
+from tdeed_tpu_torch.kernels.augment import (
+    sample_params,
+    train_preprocess,
+    train_preprocess_plain,
+)
 from tdeed_tpu_torch.models.heads import DROPOUT_RATE
 from tdeed_tpu_torch.ops.displacement import decode_displacement
+from tdeed_tpu_torch.parallel import mesh
 from tdeed_tpu_torch.train import augment
 from tdeed_tpu_torch.train.losses import (
     class_weights,
@@ -80,7 +99,8 @@ class TrainStep:
     model, optimizer, schedule and that count (checkpoint.py)."""
 
     def __init__(self, model, optimizer, scheduler, *, crop_dim, num_classes_bg,
-                 mixup, radi_displacement, acc_grad_iter=1, fg_weight=5.0, seed=0):
+                 mixup, radi_displacement, acc_grad_iter=1, fg_weight=5.0, seed=0,
+                 pallas_augment=None):
         self.model = model
         self.optimizer = optimizer
         self.scheduler = scheduler
@@ -89,6 +109,9 @@ class TrainStep:
         self.mixup = mixup
         self.radi_displacement = radi_displacement
         self.acc_grad_iter = acc_grad_iter
+        self.pallas_augment = pallas_augment
+        self.group = mesh.group_of(model)
+        self.rank, self.world = mesh.rank(self.group), mesh.world(self.group)
         dev = _device_of(model)
         self.weights = class_weights(num_classes_bg, fg_weight, dev)
         self.two_heads = model.two_heads
@@ -121,8 +144,11 @@ class TrainStep:
     def draw(self, batch) -> List[StepDraws]:
         """Draw this step's random values for ``batch`` on the host: one
         StepDraws per micro-batch, in order, from generators seeded with
-        (seed, step)."""
+        (seed, step). Over W ranks each draws for the global micro-batch of
+        W b clips and keeps its rows, [r b, (r + 1) b)."""
         b = self._micro_size(batch)
+        rows = slice(self.rank * b, (self.rank + 1) * b)
+        b *= self.world
         _, t, h, w, _ = batch["frame"].shape
         seq = np.random.SeedSequence([self.seed, self.step])
         generator = torch.Generator().manual_seed(int(seq.generate_state(1, np.uint64)[0]))
@@ -140,6 +166,10 @@ class TrainStep:
                 name: torch.rand(b, t, d, generator=generator) >= DROPOUT_RATE
                 for name in heads
             }
+            if self.world > 1:
+                lam = None if lam is None else lam[rows]
+                aug = aug[rows]
+                keep = {name: k[rows] for name, k in keep.items()}
             draws.append(StepDraws(crop, lam, aug, keep))
         return draws
 
@@ -171,7 +201,8 @@ class TrainStep:
                     draws.lam.to(dev), self.total_bg,
                     label_d, _on(batch.get("labelD2"), dev),
                 )
-        x = train_preprocess(frames, draws.aug.to(dev, non_blocking=True))
+        preprocess = train_preprocess_plain if self.pallas_augment is False else train_preprocess
+        x = preprocess(frames, draws.aug.to(dev, non_blocking=True))
         keep = {k: v.to(dev, non_blocking=True) for k, v in draws.dropout_keep.items()}
         out = self.model(x, dropout_keep=keep)
 
@@ -188,7 +219,7 @@ class TrainStep:
             )
         else:
             loss = weighted_ce_hard(
-                logits.reshape(-1, c), label.reshape(-1), self.weights
+                logits.reshape(-1, c), label.reshape(-1), self.weights, self.group
             )
         if self.radi_displacement > 0 and label_d is not None:
             loss = loss + displacement_mse(out["displ"], label_d)
@@ -202,7 +233,8 @@ class TrainStep:
         ids; tensors or numpy arrays), with
         ``draws`` from ``draw`` (one per micro-batch) or drawn here.
         Returns {'loss': the micro-batches' mean loss, a detached fp32
-        scalar on the model's device}."""
+        scalar on the model's device}; over W ranks ``batch`` is the rank's
+        rows and the loss is the global batch's."""
         dev = _device_of(self.model)
         b = self._micro_size(batch)
         if draws is None:
@@ -217,6 +249,11 @@ class TrainStep:
             loss = self._loss(micro, d, dev)
             (loss / self.acc_grad_iter).backward()
             total = loss.detach() if total is None else total + loss.detach()
+        if self.group is not None:
+            # once per optimizer step: the gradients and the loss in one
+            # all-reduce per dtype
+            grads = [p.grad for p in self.model.parameters() if p.grad is not None]
+            mesh.all_reduce_mean_(grads + [total], self.group)
         self.optimizer.step()
         self.scheduler.step()
         self.step += 1
@@ -235,6 +272,7 @@ def make_train_step(
     acc_grad_iter: int = 1,
     fg_weight: float = 5.0,
     seed: int = 0,
+    pallas_augment: Optional[bool] = None,
 ) -> TrainStep:
     """Build the training step over ``model`` with ``optimizer`` and
     ``scheduler`` from train.schedule.make_optimizer. ``seed`` and the
@@ -243,12 +281,15 @@ def make_train_step(
     step runs on the device of the model's parameters (``build_model``
     puts them on the CUDA device unless asked for the CPU) and moves each
     batch there. A model with ``two_heads`` (C1+1, C2+1) routes each clip
-    to its dataset's head."""
+    to its dataset's head. ``pallas_augment`` False runs the plain
+    photometric chain in place of the kernel. A model that
+    ``parallel.mesh.distribute`` gave a process group trains data-parallel
+    over its ranks (see the module docstring)."""
     return TrainStep(
         model, optimizer, scheduler, crop_dim=crop_dim,
         num_classes_bg=num_classes_bg, mixup=mixup,
         radi_displacement=radi_displacement, acc_grad_iter=acc_grad_iter,
-        fg_weight=fg_weight, seed=seed,
+        fg_weight=fg_weight, seed=seed, pallas_augment=pallas_augment,
     )
 
 
@@ -260,8 +301,10 @@ def make_val_step(model, *, crop_dim: Optional[int], num_classes_bg: int,
     preprocessing (center crop, no augmentation), running BN statistics,
     no dropout (ref: model/model.py:196-198). With the model's
     ``two_heads`` each clip of a batch with 'dataset' ids takes its own
-    head's loss."""
+    head's loss. Over the ranks of the model's process group the batch is
+    the rank's rows and the loss is the global batch's."""
     two_heads = model.two_heads
+    group = mesh.group_of(model)
     dev = _device_of(model)
     weights = class_weights(num_classes_bg, fg_weight, dev)
     weights2 = class_weights(two_heads[1], fg_weight, dev) if two_heads else None
@@ -280,9 +323,11 @@ def make_val_step(model, *, crop_dim: Optional[int], num_classes_bg: int,
                 num_classes_bg, weights, weights2, soft=False,
             )
         else:
-            loss = weighted_ce_hard(logits.reshape(-1, c), label.reshape(-1), weights)
+            loss = weighted_ce_hard(logits.reshape(-1, c), label.reshape(-1), weights, group)
         if radi_displacement > 0 and "labelD" in batch:
             loss = loss + displacement_mse(out["displ"], _on(batch["labelD"], dev))
+        if group is not None:
+            mesh.all_reduce_mean_([loss], group)
         aux = {"loss": loss, "logits": logits}
         if radi_displacement > 0:
             aux["displ"] = out["displ"]

@@ -161,6 +161,30 @@ def test_launch_counter_and_train_preprocess(cuda):
     _assert_within_bf16_ulp(got, want)
 
 
+@pytest.mark.parametrize("pallas_augment,launches", [(None, 1), (True, 1), (False, 0)])
+def test_train_step_honours_pallas_augment(cuda, pallas_augment, launches):
+    """A train step on the card launches the kernel once with
+    pallas_augment None or True, and never with False (the plain chain)."""
+    import numpy as np
+
+    from tdeed_tpu_torch.models.tdeed import TDEED
+    from tdeed_tpu_torch.train.schedule import make_optimizer
+    from tdeed_tpu_torch.train.step import make_train_step
+
+    torch.manual_seed(0)
+    model = TDEED(4, 8, n_layers=1, sgp_ks=3, sgp_r=2, dtype=torch.float32).to(cuda)
+    opt, sched = make_optimizer(model.parameters(), 1e-3, 1, 10)
+    step = make_train_step(model, opt, sched, crop_dim=32, num_classes_bg=5, mixup=True,
+                           radi_displacement=2, pallas_augment=pallas_augment)
+    rng = np.random.default_rng(0)
+    batch = {k: rng.integers(0, 256, (2, 8, 40, 40, 3)).astype(np.uint8)
+             for k in ("frame", "frame2")}
+    batch.update({k: rng.integers(0, 5, (2, 8)) for k in ("label", "label2")})
+    before = photometric.launches
+    assert torch.isfinite(step(batch)["loss"])
+    assert photometric.launches - before == launches
+
+
 def test_wrapper_raises_instead_of_falling_back(cuda):
     frames = _frames((1, 2, 8, 8, 3), torch.uint8, cuda)
     with pytest.raises(ValueError):  # params on the wrong device

@@ -29,7 +29,8 @@ Phases, each fatal on failure:
      answers 4-clip requests (100 frames of 256x256 uint8 each), plain and
      with the hflip TTA;
   5b. spot: a SpottingPredictor with the same weights spots events in one
-     synthetic 600-frame video with the hflip TTA (batch 1, 2 passes) and
+     synthetic 600-frame video (np.save'd frames read by np.load, the
+     decode-free baseline of 11d) with the hflip TTA (batch 1, 2 passes) and
      without (batch 4): device and host aggregation give the same bits,
      two calls give the same bits, every event is a known class at a frame
      of the video with a score in [0, 1]; then evaluate() over a 2-video
@@ -100,11 +101,30 @@ Phases, each fatal on failure:
      val mAP: bare checkpoint keys, from_run loads checkpoint_best; 10c:
      with two cards spot() over n_devices=2 against 1, bit for bit; with
      one, a line saying why it did not run.
+  11. the host data tools over real JPEG files, no decoder seam: 11a: the
+     toolchain the native JPEG decoder needs (g++, jpeglib.h, libjpeg, the
+     libjpeg Pillow bundles) and its build (tdeed_tpu_torch/native/jpeg.py);
+     where it cannot be built, get_decoder('native') must raise with the
+     build's message, 11b-11d do not run and 11e reads phase 7's np.load
+     seam; 11b: every committed fixture JPEG (native/fixtures/) against its
+     manifest, bit for bit with the manifest's libjpeg.so.62 (else within
+     OTHER_LIBJPEG_*), then decode and decode_batch of 100 frames on 1, 4
+     and 8 threads timed at 256x256 and 448x796, beside PIL and OpenCV;
+     11c: phase 7's training CLI run (store, 2 epochs) over the same layout
+     with every frame a symbolic link to a committed 256x256 JPEG, read by
+     the decoder the config names ('auto': native), its warm epoch beside
+     phase 7's, and its loader alone; 11d: spot() over a 600-frame video of
+     such links with the predictor's own decoder, beside phase 5b; 11e:
+     tools.validate_reference_checkpoint on a reference-layout .pt of the
+     flagship weights over 11c's test split (its mAP, then --expect that
+     mAP: "within"), tools.overfit_check at 100 steps (its default 150 take
+     over 20 s on the card; one photometric launch a step) and
+     tools.convergence_check with its default 400 steps.
 
 The line before the last is a JSON object with each kernel's route, the
 TPU kernel it replaces, its launches on its paths (phases 5-7, phase 8,
-phase 9 and phase 10 for the photometric kernel, each counted from 0, and
-their sum; the
+phase 9, phase 10 and phase 11 for the photometric kernel, each counted
+from 0, and their sum; the
 probe tool's run for the probe kernels), its
 largest error against the plain version, its time, the plain version's,
 the one PyTorch call's that computes the same function (null where there
@@ -166,6 +186,21 @@ PHASE9_STEPS = 3  # train steps of each phase-9 trunk, and of each 9b setting
 EXPORT_CLIPS = 4  # the exported programs' batch (phase 9c)
 EXPORT_CALLS = 10
 KERNEL_SOURCES = ("photometric", "probe")
+# phase 11: the host data tools over the committed JPEG fixtures
+DECODE_BATCH = 100  # frames of each timed decode_batch
+DECODE_THREADS = (1, 4, 8)
+DECODE_REPEATS = 3  # each decode timing is the median of 3
+# A libjpeg of another ABI than the manifest's (libjpeg.so.62) may round
+# the IDCT differently by 1 (IEEE 1180 accuracy) and upsample the 4:2:0
+# chroma with another filter (libjpeg 7+ scales it in the DCT domain); on
+# the fixtures' smooth gradients with +-20 noise that moves a value by at
+# most the chroma step between neighbouring samples, <= 16, and the mean
+# absolute difference stays under 2
+OTHER_LIBJPEG_MAX_ABS = 16
+OTHER_LIBJPEG_MEAN_ABS = 2.0
+# tools.overfit_check with --steps 100, one photometric launch a step: its
+# default 150 steps take 21-26 s on the card, and 100 pass its rule there
+OVERFIT_STEPS = 100
 # phase 10: data parallelism at the flagship's full width
 DP_RANKS = 2
 DP_STEPS = 3
@@ -595,9 +630,11 @@ def serve_phase(torch, cfg, model):
 
 
 class _TimedLoad:
-    """np.load as a frame decoder, with the seconds spent in it."""
+    """A frame decoder (np.load unless another is given), with the seconds
+    spent in it."""
 
-    def __init__(self):
+    def __init__(self, fn=None):
+        self.fn = fn
         self.seconds = 0.0
 
     def __call__(self, path):
@@ -605,7 +642,7 @@ class _TimedLoad:
 
         t0 = time.perf_counter()
         try:
-            return np.load(path)
+            return (self.fn or np.load)(path)
         finally:
             self.seconds += time.perf_counter() - t0
 
@@ -641,15 +678,18 @@ def spot_phase(torch, cfg, model, smi):
     """Sliding-window spotting through SpottingPredictor.spot(), then
     evaluate() over a split, with the flagship model's weights.
 
-    The card's machine has numpy but no PIL, cv2 or libjpeg, so the frames
-    are synthetic: one FineDiving-layout video of SPOT_FRAMES random
-    256x256 uint8 frames from a seeded numpy generator, under a temporary
-    directory in build/, each written with np.save at the path the
-    FineDiving scheme resolves, and the predictor's decoder (the seam the
-    JAX class also exposes as ``self.decoder``) is an np.load reader. The
-    files sit in the page cache, so "decode" here is a memory read. Each
-    timed call starts with an empty decoded-frame cache, as a new video
-    would.
+    The frames are synthetic and decode-free: one FineDiving-layout video
+    of SPOT_FRAMES random 256x256 uint8 frames from a seeded numpy
+    generator, under a temporary directory in build/, each written with
+    np.save at the path the FineDiving scheme resolves, and the
+    predictor's decoder (the seam the JAX class also exposes as
+    ``self.decoder``) is an np.load reader. The files sit in the page
+    cache, so "decode" here is a memory read: the baseline phase 11d's
+    spot() over JPEG files is set beside. (Phase 11a found Pillow and
+    OpenCV on the card's machine but no libjpeg headers or system libjpeg;
+    the native decoder builds there against the libjpeg Pillow bundles.)
+    Each timed call starts with an empty decoded-frame cache, as a new
+    video would. Returns {mode: (wall s, decode s)} of the device call.
     """
     import tempfile
 
@@ -675,6 +715,7 @@ def spot_phase(torch, cfg, model, smi):
         _write_video(frame_dir, video, SPOT_FRAMES, rng)
         n_windows = len(pred._windows(SPOT_FRAMES))
         every = dict(nms="none", threshold=0.0)  # every (frame, class) score
+        baseline = {}
         for mode, tta in (("tta", True), ("plain", False)):
             calls = {}
             for name, kw in (("host", dict(device_aggregate=False, **every)),
@@ -702,6 +743,7 @@ def spot_phase(torch, cfg, model, smi):
                         and 0.0 <= e["score"] <= 1.0):
                     fail(f"spot() {mode} returned an invalid event {e}")
             bs = 1 if tta else pred.batch_size
+            baseline[mode] = calls["device"][1:]  # (wall s, decode s)
             log(f"[spot] {mode} (batch {bs}, {2 if tta else 1} pass(es)), {SPOT_FRAMES} "
                 f"frames of {FRAME}x{FRAME} uint8, {n_windows} windows: "
                 + "; ".join(f"{k} {w * 1e3:.1f} ms ({SPOT_FRAMES / w:.0f} frames/s, "
@@ -744,6 +786,7 @@ def spot_phase(torch, cfg, model, smi):
         f"windows, batch 4): mAP {m:.4f} in {wall * 1e3:.1f} ms; {smi}")
     if photometric.launches != k1_launches:
         fail("spotting launched the photometric kernel")
+    return baseline
 
 
 def train_phase(torch, cfg, model, step):
@@ -802,10 +845,11 @@ def acc_phase(torch, cfg, model, smi):
         f"{', '.join(f'{t * 1e3:.1f}' for t in times)} ms; 2 kernel launches a step; {smi}")
 
 
-def _write_cli_dataset(root, rng):
-    """CLI_VIDEOS FineDiving-layout videos of CLI_FRAMES frames, with an
-    event of a random class every CLI_EVENT_EVERY frames; returns
-    (frame_dir, data_root)."""
+def _write_cli_dataset(root, rng, write_video=_write_video):
+    """CLI_VIDEOS FineDiving-layout videos of CLI_FRAMES frames, each
+    written by ``write_video`` (np.save'd arrays by default), with an event
+    of a random class every CLI_EVENT_EVERY frames; returns (frame_dir,
+    data_root)."""
     import numpy as np
 
     frame_dir = os.path.join(root, "frames")
@@ -821,7 +865,7 @@ def _write_cli_dataset(root, rng):
         for _ in range(count):
             vid += 1
             name = f"{vid:02d}__01"
-            _write_video(frame_dir, name, CLI_FRAMES, rng)
+            write_video(frame_dir, name, CLI_FRAMES, rng)
             events = [{"frame": f, "label": classes[int(rng.integers(0, len(classes)))]}
                       for f in range(CLI_EVENT_EVERY // 2, CLI_FRAMES, CLI_EVENT_EVERY)]
             metas.append({"video": name, "num_frames": CLI_FRAMES, "fps": 25.0,
@@ -842,12 +886,13 @@ def _epoch_lines(cfg, stats, smi, tag="cli"):
             f"checkpoint save {e['save_s'] * 1e3:.1f} ms; {smi}")
 
 
-def _loader_alone(torch, cfg, load, smi):
+def _loader_alone(torch, cfg, load, smi, tag="cli"):
     """The training CLI's loader without the step: its stored train plan,
     sampler, frame cache and BatchLoader as cli/train.py builds them, over
     one epoch, with a cold frame cache and with one an epoch has filled,
     read on the host alone and through device_prefetch onto the card
-    (pinning and copies)."""
+    (pinning and copies). ``load`` is the decoder; a _TimedLoad also
+    reports its own seconds."""
     from tdeed_tpu_torch.data.clips import load_plan
     from tdeed_tpu_torch.data.loader import BatchLoader, ClipSampler, FrameCache, device_prefetch
     from tdeed_tpu_torch.data.registry import get_spec
@@ -866,7 +911,9 @@ def _loader_alone(torch, cfg, load, smi):
                 for _ in loader.epoch(0):  # fill the cache
                     pass
             hits, misses = cache.hits, cache.misses
-            load.seconds = 0.0
+            timed = isinstance(load, _TimedLoad)
+            if timed:
+                load.seconds = 0.0
             batches = loader.epoch(1)
             if how == "to the card":
                 batches = device_prefetch(batches, "cuda", depth=2)
@@ -876,17 +923,22 @@ def _loader_alone(torch, cfg, load, smi):
             t = (time.perf_counter() - t0) / n
             hit = (cache.hits - hits) / max(1, cache.hits - hits + cache.misses - misses)
             parts.append(f"{cached} cache {t * 1e3:.1f} ms a batch "
-                         f"({cfg.batch_size * cfg.clip_len / t:.0f} frames/s; hits {hit:.1%}; "
-                         f"np.load {load.seconds / n * 1e3:.1f} ms a batch over the threads)")
-        log(f"[cli] the loader alone, {how} (batch {cfg.batch_size} x clip {cfg.clip_len}, "
+                         f"({cfg.batch_size * cfg.clip_len / t:.0f} frames/s; hits {hit:.1%}"
+                         + (f"; np.load {load.seconds / n * 1e3:.1f} ms a batch over the "
+                            "threads)" if timed else ")"))
+        log(f"[{tag}] the loader alone, {how} (batch {cfg.batch_size} x clip {cfg.clip_len}, "
             f"mixup, {workers} threads): " + "; ".join(parts) + f"; {smi}")
 
 
 def cli_phase(torch, smi):
     """The two CLIs in process on the card (see the module docstring).
-    The card's machine has no PIL or cv2: the CLIs look the decoder up
-    through tdeed_tpu_torch.data.frames.get_decoder when they start, and
-    it returns an np.load reader here."""
+    The CLIs look the decoder up through
+    tdeed_tpu_torch.data.frames.get_decoder when they start, and it returns
+    an np.load reader here: the decode-free baseline of phase 11c, which
+    trains from JPEG files with the decoder the config names (phase 11a
+    found no libjpeg headers or system libjpeg on the card's machine, and
+    builds the native decoder against the libjpeg Pillow bundles there).
+    Returns the first training run's stats."""
     import tempfile
 
     import numpy as np
@@ -1004,6 +1056,7 @@ def cli_phase(torch, smi):
             log(f"[cli] predict: {len(events)} events, the same in both runs")
     finally:
         frame_io.get_decoder = get_decoder
+    return first
 
 
 def _write_frame(path, frame):
@@ -1904,6 +1957,371 @@ def dp_serve_phase(torch, smi):
                 f"{walls[1] * 1e3:.1f} ms on 2; {smi}")
 
 
+def _fixture_jpegs(h, w):
+    from tdeed_tpu_torch.tools.fixtures import fixture_jpegs
+
+    jpegs = fixture_jpegs(h, w)
+    if not jpegs:
+        fail(f"no committed {h}x{w} fixture JPEG")
+    return jpegs
+
+
+def _link_video(frame_dir, video, n, rng=None):
+    """n frames of a FineDiving-layout video, each a symbolic link to one of
+    the committed 256x256 fixture JPEGs, in turn (``rng`` is unused: the
+    pixels are the fixtures')."""
+    jpegs = _fixture_jpegs(FRAME, FRAME)
+    path = os.path.join(frame_dir, video.replace("__", "/"))
+    os.makedirs(path)
+    for i in range(n):
+        os.symlink(jpegs[i % len(jpegs)], os.path.join(path, f"{i + 1:04d}.jpg"))
+
+
+def _write_phase_config(root, frame_dir, **kw):
+    """FineDiving_small.json with phase 7's paths and epochs (CLI_CONFIG)
+    and ``kw``, under <root>/configs; returns (config_root, its path)."""
+    with open(os.path.join(CONFIGS, "FineDiving", "FineDiving_small.json")) as fp:
+        raw = json.load(fp)
+    raw.update(frame_dir=frame_dir, save_dir=os.path.join(root, "save"),
+               store_dir=os.path.join(root, "store"), **CLI_CONFIG, **kw)
+    config_root = os.path.join(root, "configs")
+    os.makedirs(os.path.join(config_root, "FineDiving"), exist_ok=True)
+    path = os.path.join(config_root, "FineDiving", "FineDiving_small.json")
+    with open(path, "w") as fp:
+        json.dump(raw, fp)
+    return config_root, path
+
+
+def toolchain_phase():
+    """11a: what the native JPEG decoder needs, and whether it builds."""
+    import ctypes.util
+
+    from tdeed_tpu_torch.data import frames as frame_io
+    from tdeed_tpu_torch.native import jpeg as native_jpeg
+
+    gxx = shutil.which(native_jpeg.CXX)
+    version, header = "none", None
+    if gxx:
+        version = subprocess.run([gxx, "--version"], capture_output=True, text=True,
+                                 timeout=60).stdout.splitlines()[0]
+        deps = subprocess.run([gxx, "-x", "c++", "-M", "-"], capture_output=True, text=True,
+                              input="#include <cstdio>\n#include <jpeglib.h>\n", timeout=60)
+        header = next((w for w in deps.stdout.split() if w.endswith("/jpeglib.h")), None)
+    t0 = time.perf_counter()
+    built = native_jpeg.available()
+    wall = time.perf_counter() - t0
+    if built:
+        how = (f"built against {native_jpeg.route()} (g++ {native_jpeg.build_seconds():.1f} s, "
+               f"{wall:.1f} s in all), loads {native_jpeg.libjpeg_path()} "
+               f"({native_jpeg.libjpeg_soname()})")
+    else:
+        how = f"not built ({wall:.1f} s): {native_jpeg.error()}"
+    log(f"[jpeg] 11a toolchain: g++ {gxx} ({version}); jpeglib.h {header or 'not found'}; "
+        f"ctypes.util.find_library('jpeg') {ctypes.util.find_library('jpeg')}; the libjpeg "
+        f"Pillow bundles {native_jpeg.bundled_libjpeg()}; os.cpu_count() {os.cpu_count()}; "
+        f"decoder {how}")
+    if not built:
+        try:
+            frame_io.get_decoder("native")
+        except RuntimeError as e:
+            if str(e) != native_jpeg.error():
+                fail(f"get_decoder('native') raised {e!r}, not the build's message")
+        else:
+            fail("get_decoder('native') returned a decoder that did not build")
+        log("[jpeg] the native decoder cannot be built on this machine: 11b-11d do not run, "
+            "and 11e runs over phase 7's np.load seam")
+    return built
+
+
+def _median_s(fn):
+    times = []
+    for _ in range(DECODE_REPEATS):
+        t0 = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t0)
+    return sorted(times)[len(times) // 2]
+
+
+def decode_phase(smi):
+    """11b: every committed fixture against its manifest, then decode and
+    decode_batch timed on the host at 256x256 and 448x796 (beside PIL and
+    OpenCV where they are installed)."""
+    import hashlib
+
+    import numpy as np
+
+    from tdeed_tpu_torch.native import jpeg as native_jpeg
+    from tdeed_tpu_torch.tools.fixtures import FIXTURES
+
+    with open(FIXTURES / "manifest.json") as fp:
+        manifest = json.load(fp)
+    soname = native_jpeg.libjpeg_soname()
+    mismatched = []
+    for f in manifest["frames"]:
+        got = native_jpeg.decode(str(FIXTURES / f["file"]))
+        if got.shape != (f["height"], f["width"], 3):
+            fail(f"{f['file']} decoded to {got.shape}")
+        if hashlib.sha256(got.tobytes()).hexdigest() != f["decoded_sha256"]:
+            mismatched.append(f["file"])
+    small = manifest["smallest"]
+    diff = np.abs(native_jpeg.decode(str(FIXTURES / small["file"])).astype(np.int16)
+                  - np.load(FIXTURES / small["decoded"]))
+    n = len(manifest["frames"])
+    if all(f["libjpeg"] == soname for f in manifest["frames"]):
+        if mismatched:
+            fail(f"with {soname}, the manifest's libjpeg, {mismatched} decode to other bits")
+        log(f"[jpeg] 11b decode check: {n} fixtures bit for bit against the manifest "
+            f"({soname}, as the manifest's)")
+    else:
+        max_abs, mean_abs = int(diff.max()), float(diff.mean())
+        log(f"[jpeg] 11b decode check: {soname}, not the manifest's libjpeg.so.62: "
+            f"{n - len(mismatched)} of {n} fixtures bit for bit; the smallest "
+            f"({small['file']}) max abs {max_abs}, {int((diff > 0).sum())} of {diff.size} "
+            f"values differ, mean abs {mean_abs:.3f} (bounds {OTHER_LIBJPEG_MAX_ABS}, "
+            f"{OTHER_LIBJPEG_MEAN_ABS})")
+        if max_abs > OTHER_LIBJPEG_MAX_ABS or mean_abs > OTHER_LIBJPEG_MEAN_ABS:
+            fail("the decoder's libjpeg is outside the bound of another ABI's rounding")
+
+    others = {}
+    try:
+        from PIL import Image
+
+        others["PIL"] = lambda p: np.asarray(Image.open(p).convert("RGB"))
+    except ImportError:
+        pass
+    try:
+        import cv2
+
+        others["OpenCV"] = lambda p: cv2.imread(p, cv2.IMREAD_COLOR)[:, :, ::-1]
+    except ImportError:
+        pass
+    rates = {}
+    for h, w in ((FRAME, FRAME), SNB_FRAME):
+        jpegs = _fixture_jpegs(h, w)
+        paths = [jpegs[i % len(jpegs)] for i in range(DECODE_BATCH)]
+        kb = sum(os.path.getsize(p) for p in jpegs) / len(jpegs) / 1e3
+        out = np.empty((DECODE_BATCH, h, w, 3), np.uint8)
+        batch, n_ok = native_jpeg.decode_batch(paths, h, w, out=out)
+        if n_ok != DECODE_BATCH or not all(
+                np.array_equal(batch[i], native_jpeg.decode(paths[i])) for i in range(len(jpegs))):
+            fail(f"decode_batch at {h}x{w} disagrees with decode ({n_ok} decoded)")
+        one = _median_s(lambda: [native_jpeg.decode(p) for p in paths]) / DECODE_BATCH
+        parts = [f"decode {one * 1e3:.3f} ms a frame ({1 / one:.0f} frames/s)"]
+        rates[(h, w)] = {"decode": 1 / one}
+        for t in DECODE_THREADS:
+            sec = _median_s(lambda: native_jpeg.decode_batch(paths, h, w, out=out, n_threads=t))
+            rates[(h, w)][f"batch{t}"] = DECODE_BATCH / sec
+            parts.append(f"decode_batch of {DECODE_BATCH} on {t} thread(s) {sec * 1e3:.1f} ms "
+                         f"({DECODE_BATCH / sec:.0f} frames/s)")
+        for name, fn in others.items():
+            sec = _median_s(lambda: [fn(p) for p in paths]) / DECODE_BATCH
+            parts.append(f"{name} {sec * 1e3:.3f} ms a frame ({1 / sec:.0f} frames/s)")
+        log(f"[jpeg] 11b {h}x{w} ({kb:.1f} KB files), host times, os.cpu_count() "
+            f"{os.cpu_count()}: " + "; ".join(parts) + f"; {smi}")
+    return rates
+
+
+def jpeg_train_phase(torch, smi, root, phase7):
+    """11c: phase 7's training CLI run (store, then 2 epochs) over the same
+    dataset layout with every frame a symbolic link to a committed 256x256
+    JPEG, read through the decoder the config names ('auto'), not a seam;
+    then its loader alone over the JPEGs. Returns (config path, data root,
+    the photometric launches)."""
+    import numpy as np
+
+    from tdeed_tpu_torch import load_config
+    from tdeed_tpu_torch.cli import train as train_cli
+    from tdeed_tpu_torch.data import frames as frame_io
+    from tdeed_tpu_torch.kernels.augment import photometric
+    from tdeed_tpu_torch.native import jpeg as native_jpeg
+
+    frame_dir, data_root = _write_cli_dataset(root, np.random.default_rng(SEED + 5),
+                                              _link_video)
+    config_root, config = _write_phase_config(root, frame_dir, store_mode="store")
+    argv = ["--model", "FineDiving_small", "--config_root", config_root,
+            "--data_root", data_root, "--no_wandb"]
+    try:
+        train_cli.main(argv)
+        fail("store mode did not exit")
+    except SystemExit as e:
+        if e.code not in (0, None):
+            fail(f"store mode exited with {e.code}")
+    _write_phase_config(root, frame_dir, store_mode="load")
+    cfg = load_config("FineDiving_small", config_root)
+    decoder = frame_io.get_decoder(cfg.decoder)
+    if decoder is not native_jpeg.decode:
+        fail(f"decoder {cfg.decoder!r} did not look up the native decoder")
+    before = photometric.launches
+    stats = train_cli.main(argv)
+    launches = photometric.launches - before
+    if launches != stats["end_step"] or stats["end_step"] != (
+            CLI_CONFIG["num_epochs"] * cfg.dataset_len // cfg.batch_size):
+        fail(f"the JPEG run took {stats['end_step']} steps and launched the photometric "
+             f"kernel {launches} times")
+    with open(os.path.join(cfg.save_dir, "train_meta.json")) as fp:
+        history = json.load(fp)["history"]
+    losses = [r[k] for r in history for k in ("train", "val")]
+    if not all(map(math.isfinite, losses)):
+        fail(f"non-finite losses from JPEG frames: {losses}")
+    _epoch_lines(cfg, stats, smi, tag="jpeg")
+    frames = cfg.batch_size * cfg.clip_len
+    for what, st in (("phase 7, np.load seam", phase7), ("11c, native JPEG decode", stats)):
+        e = st["epochs"][-1]
+        log(f"[jpeg] warm epoch ({what}): {frames * e['steps'] / e['train_s']:.0f} train "
+            f"frames/s including the loader, waiting {e['wait_s'] / e['train_s']:.1%} of the "
+            f"train wall; first epoch {frames * st['epochs'][0]['steps'] / st['epochs'][0]['train_s']:.0f} "
+            f"frames/s, waiting {st['epochs'][0]['wait_s'] / st['epochs'][0]['train_s']:.1%}")
+    log(f"[jpeg] 11c: losses {', '.join(f'{v:.4f}' for v in losses)}; {stats['end_step']} "
+        f"steps, {launches} photometric launches; frame cache hit rate "
+        f"{stats['frame_cache']['hit_rate']:.1%}; {smi}")
+    _loader_alone(torch, cfg, decoder, smi, tag="jpeg")
+    return config, data_root, launches
+
+
+def jpeg_spot_phase(torch, cfg, state_dict, smi, root, phase5b):
+    """11d: spot() over a 600-frame video of symbolic links to the
+    committed 256x256 JPEGs, with the decoder the predictor looks up
+    itself; then the same calls with that decoder timed."""
+    from tdeed_tpu_torch.data.loader import FrameCache
+    from tdeed_tpu_torch.infer.predictor import SpottingPredictor
+    from tdeed_tpu_torch.native import jpeg as native_jpeg
+
+    classes = {f"class{i}": i for i in range(1, cfg.num_classes + 1)}
+    pred = SpottingPredictor(cfg, state_dict, classes, device="cuda")
+    if pred.decoder is not native_jpeg.decode:
+        fail(f"the predictor looked up {pred.decoder}, not the native decoder")
+    frame_dir, video = os.path.join(root, "spot"), "01__01"
+    _link_video(frame_dir, video, SPOT_FRAMES)
+    for mode, tta in (("tta", True), ("plain", False)):
+        walls = []
+        for timed in (False, True):
+            pred.decoder = _TimedLoad(native_jpeg.decode) if timed else native_jpeg.decode
+            pred._cache = FrameCache(cfg.decode_cache_mb << 20)  # a new video: cold
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            events = pred.spot(frame_dir, video, SPOT_FRAMES, hflip_tta=tta)
+            walls.append(time.perf_counter() - t0)
+            if not events or not all(e["label"] in classes and 0 <= e["frame"] < SPOT_FRAMES
+                                     and 0.0 <= e["score"] <= 1.0 for e in events):
+                fail(f"spot() {mode} over JPEG frames returned {len(events)} events, or an "
+                     "invalid one")
+        decode = pred.decoder.seconds
+        pred.decoder = native_jpeg.decode
+        reads = _read_windows(pred, frame_dir, video)
+        wall5b, decode5b = phase5b[mode]
+        log(f"[jpeg] 11d spot {mode}, {SPOT_FRAMES} JPEG frames of {FRAME}x{FRAME}: "
+            f"{walls[0] * 1e3:.1f} ms ({SPOT_FRAMES / walls[0]:.0f} frames/s); with the "
+            f"decoder timed {walls[1] * 1e3:.1f} ms, decoding {decode * 1e3:.1f} ms "
+            f"({decode / walls[1]:.1%} of the wall); the window reads alone {reads * 1e3:.1f} "
+            f"ms; phase 5b (np.load seam) {wall5b * 1e3:.1f} ms, decoding "
+            f"{decode5b / wall5b:.1%}; {len(events)} events; {smi}")
+
+
+def _tool(main, argv, what):
+    """Run a tool's main in process with its output captured; a tool that
+    exits with a message fails the run. Returns (result, output)."""
+    import contextlib
+    import io
+
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(out):
+            res = main(argv)
+    except SystemExit as e:
+        fail(f"{what} exited: {e.code}\n{out.getvalue()[-4000:]}")
+    return res, out.getvalue(), time.perf_counter() - t0
+
+
+def tools_phase(torch, smi, state_dict, config, data_root, root):
+    """11e: the reference-checkpoint gate on a reference-layout .pt of the
+    flagship model's weights over the test split of ``data_root`` (twice:
+    for its mAP, then with --expect that mAP), overfit_check at
+    OVERFIT_STEPS steps and convergence_check with its default steps.
+    Returns the photometric launches."""
+    from tdeed_tpu_torch.kernels.augment import photometric
+    from tdeed_tpu_torch.tools import convergence_check, overfit_check
+    from tdeed_tpu_torch.tools import validate_reference_checkpoint as validate
+
+    pt = os.path.join(root, "checkpoint_best.pt")
+    torch.save(state_dict, pt)
+    argv = ["--checkpoint", pt, "--config", config, "--data_root", data_root]
+    first, _, wall = _tool(validate.main, argv, "validate_reference_checkpoint")
+    res, out, wall2 = _tool(validate.main, argv + ["--expect", str(first["map_avg"])],
+                            "validate_reference_checkpoint --expect")
+    verdict = [line for line in out.splitlines() if line.startswith("VERDICT")]
+    if not res["gate_pass"] or len(verdict) != 1 or "within" not in verdict[0]:
+        fail(f"the gate against the model's own mAP did not pass: {verdict}")
+    table = ", ".join(f"{k} {res[k]:.4f}" for k in sorted(res) if k.startswith("map_"))
+    log(f"[tools] 11e validate_reference_checkpoint ({res['device']}): {table} in "
+        f"{wall:.1f} s; {verdict[0]} ({wall2:.1f} s)")
+
+    before = photometric.launches
+    res, _, wall = _tool(overfit_check.main, ["--device", "cuda", "--steps", str(OVERFIT_STEPS)],
+                         "overfit_check")
+    launches = photometric.launches - before
+    if launches != OVERFIT_STEPS:
+        fail(f"overfit_check launched the photometric kernel {launches} times")
+    log(f"[tools] 11e overfit_check ({OVERFIT_STEPS} steps, clip 16, crop 64, bf16): first "
+        f"{res['first']:.4f} -> last {res['last']:.4f} (loss every 10 steps "
+        f"{', '.join(f'{v:.3f}' for v in res['losses'][::10])}), OVERFIT CHECK PASSED in "
+        f"{wall:.1f} s; {smi}")
+
+    res, _, wall = _tool(convergence_check.main, ["--device", "cuda"], "convergence_check")
+    if not (math.isfinite(res["loss0_port"]) and res["tail20_port"] < res["loss0_port"]
+            and 0.0 <= res["map_port"] <= 1.0):
+        fail(f"convergence_check: {res}")
+    log(f"[tools] 11e convergence_check ({wall:.1f} s): {json.dumps(res)}")
+    return launches
+
+
+class _NpLoadSeam:
+    """Phase 7's seam for the tools when the native decoder cannot be
+    built: every decoder lookup returns np.load, and the tools' fixture
+    writer np.saves its frames."""
+
+    def __enter__(self):
+        import numpy as np
+
+        from tdeed_tpu_torch.data import frames, loader
+        from tdeed_tpu_torch.infer import windows
+        from tdeed_tpu_torch.tools import fixtures
+
+        self.saved = [(m, "get_decoder", m.get_decoder) for m in (frames, loader, windows)]
+        self.saved.append((fixtures, "write_jpeg", fixtures.write_jpeg))
+        for m in (frames, loader, windows):
+            m.get_decoder = lambda kind="auto": np.load
+        fixtures.write_jpeg = _write_frame
+        return self
+
+    def __exit__(self, *exc):
+        for m, name, value in self.saved:
+            setattr(m, name, value)
+
+
+def host_tools_phase(torch, smi, cfg, state_dict, phase7, phase5b):
+    """Phase 11 (see the module docstring). Returns the photometric
+    launches of 11c and 11e."""
+    import tempfile
+
+    import numpy as np
+
+    built = toolchain_phase()
+    os.makedirs(REPO / "build", exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=REPO / "build") as root:
+        if built:
+            decode_phase(smi)
+            config, data_root, launches = jpeg_train_phase(torch, smi, root, phase7)
+            torch.cuda.empty_cache()
+            jpeg_spot_phase(torch, cfg, state_dict, smi, root, phase5b)
+            return launches + tools_phase(torch, smi, state_dict, config, data_root, root)
+        with _NpLoadSeam():
+            _, data_root = _write_cli_dataset(root, np.random.default_rng(SEED + 5))
+            _, config = _write_phase_config(root, os.path.join(root, "frames"),
+                                            store_mode="load")
+            return tools_phase(torch, smi, state_dict, config, data_root, root)
+
+
 def main() -> int:
     import torch
 
@@ -1928,12 +2346,13 @@ def main() -> int:
         f"{cfg.dtype} compute")
     photometric.launches = 0
     serve_phase(torch, cfg, model)
-    spot_phase(torch, cfg, model, smi)
+    phase5b = spot_phase(torch, cfg, model, smi)
     train_phase(torch, cfg, model, step)
     acc_phase(torch, cfg, model, smi)
+    flagship = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
     del model, step
     torch.cuda.empty_cache()
-    cli_phase(torch, smi)
+    phase7 = cli_phase(torch, smi)
     flagship_launches = photometric.launches
     if flagship_launches < TRAIN_STEPS + 2 * ACC_STEPS:
         fail(f"the training steps launched the photometric kernel {flagship_launches} times")
@@ -1960,13 +2379,22 @@ def main() -> int:
     if phase10_launches != DP_RANKS * (DP_STEPS + 1) + (DP_STEPS + 2) + 3 + 2:
         fail(f"phase 10 launched the photometric kernel {phase10_launches} times")
     dp_serve_phase(torch, smi)
-    k1["launches"] = flagship_launches + snb_launches + phase9_launches + phase10_launches
+    torch.cuda.empty_cache()
+    photometric.launches = 0
+    phase11_launches = host_tools_phase(torch, smi, cfg, flagship, phase7, phase5b)
+    if phase11_launches != photometric.launches:
+        fail(f"phase 11 counted {phase11_launches} photometric launches of "
+             f"{photometric.launches}")
+    k1["launches"] = (flagship_launches + snb_launches + phase9_launches + phase10_launches
+                      + phase11_launches)
     k1["launches_by_path"] = {"phases 5-7 (FineDiving_small)": flagship_launches,
                               "phase 8 (SoccerNetBall_challenge2)": snb_launches,
                               "phase 9 (GSM and plain trunks, checkpoint_backbone)":
                                   phase9_launches,
                               "phase 10 (2 data-parallel ranks, the one-process step, "
-                              "cli.train --distributed)": phase10_launches}
+                              "cli.train --distributed)": phase10_launches,
+                              "phase 11 (cli.train from JPEG frames, tools.overfit_check)":
+                                  phase11_launches}
     k1["max_abs_err"] = max(k1["max_abs_err"], snb["step_max_abs_err"])
     k1.update({f"snb_{k}": v for k, v in snb.items()})
 

@@ -2,14 +2,19 @@
 
 The port's own copy of ``get_decoder``, ``load_clip`` and ``load_window``
 from ``tdeed_tpu/data/frames.py`` (held equal by
-tests/test_torch_infer_copies.py and tests/test_torch_train_copies.py).
-Backends, in preference order:
-  * 'cv2' — OpenCV imread (libjpeg-turbo under the hood, releases the GIL);
-  * 'pil' — Pillow fallback.
-The JAX package's first-party C++ decoder ('native') has no copy here yet:
-``get_decoder('native')`` refuses, and 'auto' falls through to cv2, then
-PIL, as the JAX function does when the native library is missing; for the
-same reason ``load_clip`` has no C++ batch path.
+tests/test_torch_infer_copies.py, tests/test_torch_train_copies.py and
+tests/test_torch_frames_native.py). Backends, in preference order:
+  * 'native' — the port's C++ libjpeg batch decoder (native/jpeg.py,
+    built with g++ at first use), releases the GIL, C++ threads per clip;
+  * 'cv2'    — OpenCV imread (libjpeg-turbo under the hood, releases GIL);
+  * 'pil'    — Pillow fallback.
+'auto' takes the first that works; 'native' asked for by name raises with
+the compiler's message when the decoder did not build (the JAX function
+falls back to PIL there).
+
+The reference decodes with torchvision.io.read_image into CHW uint8
+(ref: dataset/frame.py:270-272); we decode straight to HWC, the layout the
+model's preprocessing consumes, so no host-side transpose ever happens.
 """
 
 from __future__ import annotations
@@ -19,7 +24,7 @@ from typing import Callable, List, Optional
 
 import numpy as np
 
-from tdeed_tpu_torch.models.tdeed import refuse
+from tdeed_tpu_torch.native import jpeg as native_jpeg
 
 _cv2 = None
 
@@ -49,9 +54,11 @@ def _decode_pil(path: str) -> np.ndarray:
 
 
 def get_decoder(kind: str = "auto") -> Callable[[str], np.ndarray]:
-    if kind == "native":
-        refuse("decoder='native' (the C++ libjpeg batch decoder)",
-               "the rest of the CLIs: native decoder")
+    if kind in ("auto", "native"):
+        if native_jpeg.available():
+            return native_jpeg.decode
+        if kind == "native":
+            raise RuntimeError(native_jpeg.error())
     if kind in ("auto", "cv2"):
         try:
             _get_cv2()
@@ -60,6 +67,12 @@ def get_decoder(kind: str = "auto") -> Callable[[str], np.ndarray]:
             if kind == "cv2":
                 raise
     return _decode_pil
+
+
+def _batch_native(decoder) -> bool:
+    """Whether a clip goes through the C++ batch decoder: the caller chose
+    the native decoder (or none) and it is built."""
+    return (decoder is None or decoder is native_jpeg.decode) and native_jpeg.available()
 
 
 def _clip_frame_paths(paths: list, stride: int, pad: bool) -> List[Optional[str]]:
@@ -91,6 +104,10 @@ def load_clip(
     (the reference pickle format; ref: dataset/frame.py:355-382). Start is
     always zero-padded; end only when pad=True.
 
+    Fast path: when the caller chose the native decoder, the whole clip
+    decodes with C++ threads into one contiguous buffer (no per-frame
+    Python overhead).
+
     cache: optional ``tdeed_tpu_torch.data.loader.FrameCache`` — decoded
     frames are served from / inserted into the LRU; only misses decode.
     Falls back to the uncached path on any inconsistency (mid-clip
@@ -105,6 +122,24 @@ def load_clip(
         out = _load_clip_cached(slot_paths, decoder, cache)
         if out is not None:
             return out
+
+    # The C++ batch path only when the caller actually selected the native
+    # decoder: an explicit cfg.decoder='cv2'/'pil' must be honored
+    # (different libjpeg backends give different IDCT pixels).
+    if _batch_native(decoder):
+        try:
+            h, w = native_jpeg.probe(first_real)
+        except OSError:
+            pass  # the per-frame decoder below raises the proper error
+        else:
+            arr, n_ok = native_jpeg.decode_batch(slot_paths, h, w)
+            if n_ok == sum(1 for p in slot_paths if p is not None):
+                return arr
+            # A present frame failed to decode (corrupt stream, or a
+            # mid-clip resolution change vs the probed first frame): the
+            # C++ path zero-fills it silently, indistinguishable from
+            # padding — fall through to the per-frame decoder, which
+            # raises a proper error for the offending file.
 
     frames: List[np.ndarray] = []
     for p in slot_paths:
@@ -135,11 +170,36 @@ def _load_clip_cached(
         p if (p is not None and h is None) else None
         for p, h in zip(slot_paths, hits)
     ]
+    n_miss = sum(1 for p in miss if p is not None)
     shape = next((h.shape for h in hits if h is not None), None)
     if any(h is not None and h.shape != shape for h in hits):
         return None
 
     n = len(slot_paths)
+    # Same contract as the uncached fast path: C++ batch decode only when
+    # the caller actually selected the native decoder.
+    if n_miss > 0 and _batch_native(decoder):
+        first_miss = next(p for p in miss if p is not None)
+        try:
+            h, w = native_jpeg.probe(first_miss)
+        except OSError:
+            return None
+        if shape is None:
+            shape = (h, w, 3)
+        elif shape != (h, w, 3):
+            return None
+        # decode_batch zero-fills masked (None) slots, so the misses land
+        # directly in their final clip slots; hits are copied over after.
+        arr, n_ok = native_jpeg.decode_batch(miss, h, w)
+        if n_ok != n_miss:
+            return None
+        for i, (p, hit) in enumerate(zip(slot_paths, hits)):
+            if hit is not None:
+                arr[i] = hit
+            elif p is not None:
+                cache.put(p, arr[i].copy())
+        return arr
+
     decoded = {}
     for p in miss:
         if p is None:

@@ -110,6 +110,11 @@ class TrainStep:
         self.radi_displacement = radi_displacement
         self.acc_grad_iter = acc_grad_iter
         self.pallas_augment = pallas_augment
+        # None: the augmentation pallas_augment names, looked up at each
+        # step; else a (frames, (b, 16) params) -> standardized frames
+        # function in its place (the convergence tool's plain /255 and
+        # standardization)
+        self.preprocess = None
         self.group = mesh.group_of(model)
         self.rank, self.world = mesh.rank(self.group), mesh.world(self.group)
         dev = _device_of(model)
@@ -201,7 +206,8 @@ class TrainStep:
                     draws.lam.to(dev), self.total_bg,
                     label_d, _on(batch.get("labelD2"), dev),
                 )
-        preprocess = train_preprocess_plain if self.pallas_augment is False else train_preprocess
+        preprocess = self.preprocess or (
+            train_preprocess_plain if self.pallas_augment is False else train_preprocess)
         x = preprocess(frames, draws.aug.to(dev, non_blocking=True))
         keep = {k: v.to(dev, non_blocking=True) for k, v in draws.dropout_keep.items()}
         out = self.model(x, dropout_keep=keep)

@@ -28,6 +28,7 @@ from tdeed_tpu_torch.cli import train as train_cli
 from tdeed_tpu_torch.infer.predictor import SpottingPredictor
 from tdeed_tpu_torch.kernels.augment import _check
 from tdeed_tpu_torch.models.tdeed import build_model, check_supported, two_heads_for
+from tdeed_tpu_torch.native import jpeg as native_jpeg
 from tdeed_tpu_torch.train.schedule import make_optimizer
 from tdeed_tpu_torch.train.step import make_predict_step, make_train_step, make_val_step
 from tests.fixtures import make_finediving_fixture, write_tiny_config
@@ -50,14 +51,18 @@ def test_importing_every_port_module_leaves_jax_out():
         "new = [m for m in ('tdeed_tpu_torch.metrics.soccernet', "
         "'tdeed_tpu_torch.cli.evaluate_challenge', 'tdeed_tpu_torch.infer.export', "
         "'tdeed_tpu_torch.cli.export_model', 'tdeed_tpu_torch.parallel', "
-        "'tdeed_tpu_torch.parallel.mesh') if m not in sys.modules]\n"
+        "'tdeed_tpu_torch.parallel.mesh', 'tdeed_tpu_torch.native.jpeg', "
+        "'tdeed_tpu_torch.cli.extract_frames', 'tdeed_tpu_torch.tools.fixtures', "
+        "'tdeed_tpu_torch.tools.validate_reference_checkpoint', "
+        "'tdeed_tpu_torch.tools.overfit_check', 'tdeed_tpu_torch.tools.drive_e2e', "
+        "'tdeed_tpu_torch.tools.convergence_check') if m not in sys.modules]\n"
         "print(len(mods), new, bad, ref)\n"
     )
     out = subprocess.run(
         [sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
         timeout=120, check=True,
     ).stdout.split(" ", 1)
-    assert int(out[0]) >= 51, out  # every module of the slice was imported
+    assert int(out[0]) >= 59, out  # every module of the slice was imported
     assert out[1].strip() == "[] [] []"
 
 
@@ -196,18 +201,23 @@ def test_steps_take_two_heads_from_the_model():
          ValueError, "n_devices=2 but this machine has 1 CUDA device"),
         (lambda cfg: SpottingPredictor(cfg, {}, {"a": 1}, two_heads=(5, 18), n_devices=2),
          ValueError, "n_devices=2 but this machine has 1 CUDA device"),
-        (lambda cfg: SpottingPredictor(dataclasses.replace(cfg, decoder="native"), {}, {"a": 1},
+        (lambda cfg: SpottingPredictor(dataclasses.replace(cfg, decoder="native"),
+                                       build_model(cfg, device="cpu").state_dict(), {"a": 1},
                                        device="cpu"),
-         NotImplementedError, "ROADMAP.md.*native decoder"),
+         None, None),
     ],
     ids=["n_devices", "two_heads-n_devices", "native-decoder"],
 )
 def test_predictor_refuses_what_the_port_lacks(monkeypatch, make, error, match):
     """More replicas than the machine has cards (here one), before any
-    model is built; the native decoder with its ROADMAP.md item."""
+    model is built; the native decoder, which the port has, is the one a
+    predictor with decoder='native' reads frames with."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
     cfg = load_config("FineDiving_small", config_root=str(REPO / "configs"), clip_len=8)
+    if error is None:
+        assert make(cfg).decoder is native_jpeg.decode
+        return
     with pytest.raises(error, match=match):
         make(cfg)
 

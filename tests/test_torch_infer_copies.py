@@ -177,9 +177,8 @@ def test_compute_maps_matches(name, tmp_path, capsys):
 @pytest.mark.parametrize("kind", ["pil", "cv2", "auto"])
 def test_decoders_match(fx, kind):
     path = os.path.join(fx["frame_dir"], "01", "01", "0001.jpg")
-    # the JAX package's 'auto' picks its C++ decoder where it is built; the
-    # port has none yet, so its 'auto' is cv2
-    want = jframes.get_decoder("cv2" if kind == "auto" else kind)(path)
+    # both packages' 'auto' picks their C++ decoder where it is built
+    want = jframes.get_decoder(kind)(path)
     got = pframes.get_decoder(kind)(path)
     assert got.dtype == np.uint8 and got.shape == (16, 16, 3)
     np.testing.assert_array_equal(got, want)

@@ -104,7 +104,7 @@ def refuse_waiting(cfg, args) -> None:
     """Raise, before anything is read or written, for a launch the CLI
     cannot run: --distributed with --n_devices, more ranks than cards, a
     batch that does not split into acc_grad_iter micro-batches over the
-    ranks (ValueError each); then for what the model does not carry
+    ranks (ValueError each); then for a config the model cannot build
     (check_supported)."""
     n = args.n_devices or 1
     if args.n_devices is not None and args.n_devices < 1:

@@ -3,9 +3,11 @@
 The port's own copy of ``tdeed_tpu/config.py``: the same fields, defaults
 and loading rules, so one JSON file gives the same config to both
 packages (held equal by tests/test_torch_config.py). Fields that only the
-JAX package reads (mesh axis, Orbax backbone checkpoint, the fused-block
-knobs) stay, so that a config round-trips unchanged; the port refuses the
-values it does not carry (models/tdeed.py:check_supported).
+JAX package reads (mesh axis, Orbax backbone checkpoint) stay, so that a
+config round-trips unchanged; the port raises for the values it cannot
+build (models/tdeed.py:check_supported). The fused-block knobs
+(``fuse_entry``, ``fuse_shift``) route the port's trunk as they route the
+JAX package's (models/regnet.py, kernels/fused_block.py).
 
 The reference merges ``config/<Dataset>/<Dataset>_<name>.json`` onto an
 argparse namespace (ref: train_tdeed.py:45-77, config/README.md:3-29). Here

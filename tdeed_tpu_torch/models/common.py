@@ -153,31 +153,54 @@ class SplitBatchNorm(nn.Module):
 
     def forward(self, x):
         if self.training:
-            mean, sq = _BatchMoments.apply(x, self.process_group)
-            var = sq - mean.square()
-            if self.update_stats:
-                with torch.no_grad():
-                    m = self.momentum
-                    self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
-                    self.running_var.copy_(m * self.running_var + (1 - m) * var)
-                    self.num_batches_tracked.add_(1)
+            mean, var = batch_stats(x, self.process_group)
+            self.record(mean, var)
         else:
             mean, var = self.running_mean, self.running_var
-        inv = self.weight * torch.rsqrt(var + self.eps)
-        shape = [1] * x.ndim
-        shape[1] = x.shape[1]
-        a = inv.to(x.dtype).view(shape)
-        b = (self.bias - mean * inv).to(x.dtype).view(shape)
+        a, b = bn_fold(mean, var, self.weight, self.bias, self.eps, x)
         return x * a + b
+
+    def record(self, mean, var) -> None:
+        """Mix a training batch's (mean, biased var) into the running
+        statistics and count the batch, unless ``update_stats`` is off.
+        The fused trunk units (kernels/fused_block.py) return their
+        statistics, and their modules record them here."""
+        if not self.update_stats:
+            return
+        with torch.no_grad():
+            m = self.momentum
+            self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
+            self.running_var.copy_(m * self.running_var + (1 - m) * var)
+            self.num_batches_tracked.add_(1)
+
+
+def batch_stats(x, group=None):
+    """SplitBatchNorm's training statistics of ``x``: the per-channel mean
+    and the biased E[x^2] - E[x]^2, fp32 (or wider), over the global batch
+    of ``group``; differentiable (_BatchMoments)."""
+    mean, sq = _BatchMoments.apply(x, group)
+    return mean, sq - mean.square()
+
+
+def bn_fold(mean, var, weight, bias, eps: float, x):
+    """(a, b) of SplitBatchNorm, so that the normalisation is the one
+    ``x * a + b``: with inv = weight / sqrt(var + eps) in the statistics'
+    dtype, a = inv and b = bias - mean * inv, cast to the dtype of ``x``
+    and shaped to broadcast over its dim 1."""
+    inv = weight * torch.rsqrt(var + eps)
+    shape = [1] * x.ndim
+    shape[1] = x.shape[1]
+    return inv.to(x.dtype).view(shape), (bias - mean * inv).to(x.dtype).view(shape)
 
 
 @contextlib.contextmanager
-def frozen_running_stats(module: nn.Module):
-    """Within, every SplitBatchNorm under ``module`` normalises as before
+def frozen_running_stats(*modules: nn.Module):
+    """Within, every SplitBatchNorm under ``modules`` normalises as before
     but leaves its running statistics and ``num_batches_tracked`` alone:
     the recompute of a checkpointed block (models/regnet.py) repeats a
     forward whose statistics the step has already taken."""
-    bns = [m for m in module.modules() if isinstance(m, SplitBatchNorm)]
+    bns = [m for module in modules for m in module.modules()
+           if isinstance(m, SplitBatchNorm)]
     for m in bns:
         m.update_stats = False
     try:

@@ -108,7 +108,10 @@ class GatedShift(nn.Module):
         self.gs = SHIFTS[mode](self.fold)
         self.net = net
 
-    def forward(self, x):
+    def shift(self, x):
+        """The shifted input ``net`` reads: the first fold_dim channels
+        through GSM or GSF, the rest as they are. The fused trunk units
+        (kernels/fused_block.py) take it and ``net``'s parameters."""
         n, c, h, w = x.shape
         b = n // self.clip_len
         f = self.fold
@@ -116,4 +119,7 @@ class GatedShift(nn.Module):
         head = x[:, :f].permute(0, 2, 3, 1).reshape(b, self.clip_len, h, w, f)
         head = self.gs(head).reshape(n, h, w, f).permute(0, 3, 1, 2)
         out = torch.cat([head, x[:, f:]], dim=1)
-        return self.net(out.contiguous(memory_format=torch.channels_last))
+        return out.contiguous(memory_format=torch.channels_last)
+
+    def forward(self, x):
+        return self.net(self.shift(x))

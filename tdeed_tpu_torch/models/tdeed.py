@@ -34,7 +34,8 @@ class TDEED(nn.Module):
       'displ':  (B, T) fp32 when radi_displacement > 0.
     The trunk is RegNet-Y ``arch`` with ``shift_mode`` ('gsm', 'gsf' or
     None for the plain trunk) in s3/s4; ``checkpoint_backbone`` recomputes
-    its activations in the backward pass (models/regnet.py).
+    its activations in the backward pass, ``fuse_entry`` and ``fuse_shift``
+    train it through the fused units (models/regnet.py).
     Train/eval mode is the module's (``.train()`` / ``.eval()``): it picks
     batch or running BN statistics. ``dropout_keep`` maps the names in
     ``dropout_heads`` ('pred_fine', or 'pred_fine.fc1' and 'pred_fine.fc2'
@@ -48,13 +49,15 @@ class TDEED(nn.Module):
                  arch: str = "rny002",
                  two_heads: Optional[Sequence[int]] = None,
                  shift_mode: Optional[str] = "gsf",
-                 checkpoint_backbone: bool = False):
+                 checkpoint_backbone: bool = False,
+                 fuse_entry: bool = False, fuse_shift: bool = False):
         super().__init__()
         self.clip_len = clip_len
         self.dtype = dtype
         self.two_heads = None if two_heads is None else tuple(two_heads)
         self._features = RegNetY(arch, clip_len=clip_len, shift_mode=shift_mode,
-                                 checkpoint_blocks=checkpoint_backbone)
+                                 checkpoint_blocks=checkpoint_backbone,
+                                 fuse_entry=fuse_entry, fuse_shift=fuse_shift)
         d = self._features.feat_dim
         self.feat_dim = d
         # N(0, 1/clip_len) additive temporal embedding (ref: model/model.py:65,137)
@@ -106,25 +109,15 @@ class TDEED(nn.Module):
         return out
 
 
-def refuse(what: str, item: str) -> None:
-    """Raise NotImplementedError for a feature the port does not carry,
-    naming the ROADMAP.md item that brings it."""
-    raise NotImplementedError(
-        f"{what} is not in tdeed_tpu_torch (ROADMAP.md, port queue: {item})"
-    )
-
-
 def check_supported(cfg) -> None:
-    """Raise NotImplementedError for config values the port does not carry,
-    ValueError for a feature_arch the JAX package cannot build either."""
+    """Raise ValueError for a feature_arch the JAX package cannot build
+    either, or a dtype the port does not compute in."""
     if cfg.backbone not in ARCH_PARAMS:
         # parsed as the JAX package parses it (tdeed_tpu/models/tdeed.py:49-54)
         raise ValueError(
             f"feature_arch {cfg.feature_arch!r}: the trunk {cfg.backbone!r} is not one of "
             f"{sorted(ARCH_PARAMS)} (an optional _gsm or _gsf suffix adds the shift)"
         )
-    if cfg.fuse_entry or getattr(cfg, "fuse_shift", False):
-        refuse("fuse_entry/fuse_shift", "not to port: the fused_block custom-VJP family")
     if cfg.dtype not in _DTYPES:
         raise ValueError(f"dtype must be one of {sorted(_DTYPES)}, got {cfg.dtype!r}")
 
@@ -158,6 +151,8 @@ def build_model(cfg, two_heads=None, *, device="cuda") -> TDEED:
         two_heads=two_heads,
         shift_mode=cfg.shift_mode,
         checkpoint_backbone=cfg.checkpoint_backbone,
+        fuse_entry=cfg.fuse_entry,
+        fuse_shift=cfg.fuse_shift,
     ).to(device)
 
 

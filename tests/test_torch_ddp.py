@@ -40,12 +40,14 @@ from flax.traverse_util import flatten_dict
 
 import jax
 from tdeed_tpu_torch.models.common import SplitBatchNorm
+from tdeed_tpu_torch.models.regnet import RegNetY
 from tdeed_tpu_torch.models.tdeed import TDEED
 from tests import torch_ddp_worker as worker
 from tests.test_torch_train_step import _jax_augmented, _jax_step
 from tools.import_reference_checkpoint import convert_reference_state_dict
 
 B, HW, W = 4, 40, worker.WORLD
+TRUNK_FRAMES, TRUNK_HW = 8, 32  # 4 clips of 2 frames, 2 on each rank
 LR0 = worker.LR * 0.01  # warmup's first learning rate
 
 
@@ -67,6 +69,18 @@ def _initial_state():
     state = TDEED(worker.N_CLASSES, worker.T, dtype=torch.float32, **worker.MODEL).state_dict()
     params, stats, _ = convert_reference_state_dict(state)
     return state, {"params": params, "batch_stats": stats}
+
+
+def _fused_trunk_state():
+    """Seeded float64 weights of worker.FUSED_TRUNK, every parameter ramped
+    by +0.05 (as tests/test_fused_block.py) so the statistics' gradients
+    matter."""
+    torch.manual_seed(1)
+    trunk = RegNetY("rny002", **worker.FUSED_TRUNK).double()
+    with torch.no_grad():
+        for p in trunk.parameters():
+            p.add_(0.05 * torch.arange(p.numel(), dtype=p.dtype).reshape(p.shape) / p.numel())
+    return trunk.state_dict()
 
 
 def _global_draws(state, batch, acc_grad_iter=1, mixup=False):
@@ -104,13 +118,19 @@ def ddp(tmp_path_factory):
         "ce_logits": torch.from_numpy(rng.normal(size=(B * 6, worker.NC_BG))),
         "ce_labels": torch.from_numpy(ce_labels),
         "ce_weights": torch.tensor([1.0, 5.0, 5.0, 5.0, 5.0], dtype=torch.float64),
+        "trunk_state": _fused_trunk_state(),
+        "trunk_x": torch.from_numpy(rng.normal(size=(TRUNK_FRAMES, 3, TRUNK_HW, TRUNK_HW))),
+        "trunk_c": torch.from_numpy(rng.normal(size=(TRUNK_FRAMES, 368))),
     }
     torch.save(inputs, root / "inputs.pt")
     procs = worker.start(worker.step_cases, root)
     try:
         ref = {"inputs": inputs}
-        for name, mixup, acc, dtype, replaced in worker.STEP_CASES:
-            step = worker.make_step(inputs["state"], dtype, mixup, acc, distributed=False)
+        ref["trunk"] = worker.fused_trunk_run(inputs["trunk_state"], inputs["trunk_x"],
+                                              inputs["trunk_c"])
+        for name, mixup, acc, dtype, replaced, fuse in worker.STEP_CASES:
+            step = worker.make_step(inputs["state"], dtype, mixup, acc, distributed=False,
+                                    fuse=fuse)
             loss, state, grads, step_draws = worker.run_step(
                 step, batch, [augmented] if replaced else None)
             ref[name] = {"loss": loss, "state": state, "grads": grads, "draws": step_draws}
@@ -202,9 +222,35 @@ def _assert_step_close(got, want, loss_rtol, stats_atol):
     assert close >= 0.99 * total, f"{total - close} of {total} weight elements differ"
 
 
-@pytest.mark.parametrize("name", ["mixup-acc1", "mixup-acc2", "plain-acc1", "plain-acc2"])
+def test_fused_trunk_over_two_ranks_is_the_global_batch_in_float64(ddp):
+    """The trunk with fuse_entry and fuse_shift (every fused unit: the entry
+    units, the shift units, the stride-1 conv1 units) over 2 ranks in
+    float64, at 1e-12 of each tensor's largest entry: each rank's features
+    are its rows of the one-process features, its input gradient its rows
+    of the global one (the units' k0 and k1 come from the sums over both
+    ranks), the running statistics the global batch's on both ranks, and
+    the ranks' summed parameter gradients the global ones (dscale and dbias
+    from each rank's own sums; the loss is a sum, so no factor W)."""
+    ref, ranks = ddp
+    want = ref["trunk"]
+    for r, out in enumerate(ranks):
+        got = out["trunk"]
+        _close(got["y"], _rows(want["y"], r), 1e-12, "features")
+        _close(got["x_grad"], _rows(want["x_grad"], r), 1e-12, "input grad")
+        for k, w in want["state"].items():
+            if w.is_floating_point():
+                _close(got["state"][k], w, 1e-12, k)
+            else:
+                assert torch.equal(got["state"][k], w), k
+    for k, w in want["grads"].items():
+        _close(sum(o["trunk"]["grads"][k] for o in ranks), w, 1e-12, k)
+
+
+@pytest.mark.parametrize("name", ["mixup-acc1", "mixup-acc2", "plain-acc1", "plain-acc2",
+                                  "fused-mixup-acc2", "fused-plain-acc1"])
 def test_train_step_over_two_ranks_matches_one_process(ddp, name):
-    """fp32, mixup on and off, acc_grad_iter 1 and 2: the global loss,
+    """fp32, mixup on and off, acc_grad_iter 1 and 2, and with fuse_entry
+    and fuse_shift on (the fused-* cases): the global loss,
     running statistics and weights after one step equal the one-process
     step's on the global batch (module docstring), both ranks hold the
     same weights bit for bit, and every weight moved."""

@@ -1,12 +1,11 @@
 """Guards of the PyTorch port: it never imports JAX, it builds the flagship
 config and the SoccerNet Ball challenge config at full width, takes every
 shipped config and trains every feature_arch the JAX package builds, its
-entry points run on CUDA unless asked for the CPU, it refuses the config
-values it does not carry with the ROADMAP.md item that names them, and
-its data-parallel entry points refuse, before anything is read or
-written, only what they cannot run: more ranks or replicas than cards, a
-batch that does not split into acc_grad_iter x ranks, --distributed
-outside a torchrun launch."""
+entry points run on CUDA unless asked for the CPU, it takes the
+fused-block knobs, and its data-parallel entry points refuse, before
+anything is read or written, only what they cannot run: more ranks or
+replicas than cards, a batch that does not split into acc_grad_iter x
+ranks, --distributed outside a torchrun launch."""
 
 import dataclasses
 import json
@@ -55,14 +54,15 @@ def test_importing_every_port_module_leaves_jax_out():
         "'tdeed_tpu_torch.cli.extract_frames', 'tdeed_tpu_torch.tools.fixtures', "
         "'tdeed_tpu_torch.tools.validate_reference_checkpoint', "
         "'tdeed_tpu_torch.tools.overfit_check', 'tdeed_tpu_torch.tools.drive_e2e', "
-        "'tdeed_tpu_torch.tools.convergence_check') if m not in sys.modules]\n"
+        "'tdeed_tpu_torch.tools.convergence_check', 'tdeed_tpu_torch.kernels.fused_block') "
+        "if m not in sys.modules]\n"
         "print(len(mods), new, bad, ref)\n"
     )
     out = subprocess.run(
         [sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
         timeout=120, check=True,
     ).stdout.split(" ", 1)
-    assert int(out[0]) >= 59, out  # every module of the slice was imported
+    assert int(out[0]) >= 60, out  # every module of the slice was imported
     assert out[1].strip() == "[] [] []"
 
 
@@ -90,18 +90,19 @@ def test_build_model_defaults_to_cuda_and_never_falls_back(monkeypatch):
     assert {p.device.type for p in model.parameters()} == {"cpu"}
 
 
-@pytest.mark.parametrize(
-    "override,item",
-    [
-        ({"fuse_entry": True}, "fused_block"),
-        ({"fuse_shift": True}, "fused_block"),
-    ],
-)
-def test_build_model_refuses_what_the_port_lacks(override, item):
-    cfg = load_config("FineDiving_small", config_root=str(REPO / "configs"), **override)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md") as err:
-        build_model(cfg, device="cpu")
-    assert item in str(err.value)
+@pytest.mark.parametrize("override", [{"fuse_entry": True}, {"fuse_shift": True},
+                                      {"fuse_entry": True, "fuse_shift": True}])
+def test_build_model_and_train_cli_take_the_fused_block_knobs(override):
+    """fuse_entry and fuse_shift, alone or together: the training CLI's
+    startup checks pass, and build_model routes the trunk as the config
+    says (models/regnet.py)."""
+    name = "FineDiving_small"
+    cfg = load_config(name, config_root=str(REPO / "configs"), clip_len=8, **override)
+    train_cli.refuse_waiting(cfg, train_cli.get_args(["--model", name]))
+    trunk = build_model(cfg, device="cpu")._features
+    assert trunk.fuse_entry == cfg.fuse_entry
+    assert {b.fuse for si in range(trunk.n_stages)
+            for b in getattr(trunk, f"s{si + 1}").values()} == {cfg.fuse_shift}
 
 
 @pytest.mark.parametrize(

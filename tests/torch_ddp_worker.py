@@ -18,6 +18,7 @@ import torch
 import torch.multiprocessing as mp
 
 from tdeed_tpu_torch.models.common import SplitBatchNorm
+from tdeed_tpu_torch.models.regnet import RegNetY
 from tdeed_tpu_torch.models.tdeed import TDEED
 from tdeed_tpu_torch.parallel import mesh
 from tdeed_tpu_torch.train import step as port_step
@@ -33,15 +34,20 @@ MODEL = dict(n_layers=1, sgp_ks=3, sgp_r=2, radi_displacement=2)
 LR, WARM, COS = 8e-4, 2, 10
 SEED = 11  # of the step's draws
 # the train-step cases: (name, mixup, acc_grad_iter, dtype, replaces the
-# photometric output with the test's "augmented" tensors)
+# photometric output with the test's "augmented" tensors, fuse_entry and
+# fuse_shift on)
 STEP_CASES = (
-    ("mixup-acc1", True, 1, torch.float32, False),
-    ("mixup-acc2", True, 2, torch.float32, False),
-    ("plain-acc1", False, 1, torch.float32, False),
-    ("plain-acc2", False, 2, torch.float32, False),
-    ("mixup-acc2-float64", True, 2, torch.float64, False),
-    ("plain-acc1-jax-augmented", False, 1, torch.float32, True),
+    ("mixup-acc1", True, 1, torch.float32, False, False),
+    ("mixup-acc2", True, 2, torch.float32, False, False),
+    ("plain-acc1", False, 1, torch.float32, False, False),
+    ("plain-acc2", False, 2, torch.float32, False, False),
+    ("mixup-acc2-float64", True, 2, torch.float64, False, False),
+    ("plain-acc1-jax-augmented", False, 1, torch.float32, True, False),
+    ("fused-mixup-acc2", True, 2, torch.float32, False, True),
+    ("fused-plain-acc1", False, 1, torch.float32, False, True),
 )
+# the fused-unit trunk of the float64 case: rny002 with GSF, clips of 2
+FUSED_TRUNK = dict(clip_len=2, shift_mode="gsf", fuse_entry=True, fuse_shift=True)
 JAX_MODULES = ("jax", "jaxlib", "flax", "optax", "tdeed_tpu")
 
 
@@ -68,11 +74,13 @@ def jax_modules():
     return sorted(m for m in sys.modules if m.split(".")[0] in JAX_MODULES)
 
 
-def make_step(state_dict, dtype, mixup: bool, acc_grad_iter: int, distributed: bool):
+def make_step(state_dict, dtype, mixup: bool, acc_grad_iter: int, distributed: bool,
+              fuse: bool = False):
     """The tiny train step of the tests: rny002_gsf, clip 8, crop 32,
     n_layers 1, from ``state_dict``, in ``dtype``, over the default group
-    when ``distributed``."""
-    model = TDEED(N_CLASSES, T, dtype=dtype, shift_mode="gsf", **MODEL)
+    when ``distributed``; ``fuse`` turns fuse_entry and fuse_shift on."""
+    model = TDEED(N_CLASSES, T, dtype=dtype, shift_mode="gsf", fuse_entry=fuse,
+                  fuse_shift=fuse, **MODEL)
     if dtype == torch.float64:
         model = model.double()
         state_dict = {k: v.double() if v.is_floating_point() else v
@@ -109,6 +117,23 @@ def rows(x, rank: int, world: int, acc_grad_iter: int = 1):
     return x[mesh.global_rows(x.shape[0], acc_grad_iter, rank, world)]
 
 
+def fused_trunk_run(state_dict, x, c, group=None):
+    """The float64 FUSED_TRUNK from ``state_dict``, over ``group``'s global
+    batch when given, in train mode on frames ``x`` (N, 3, H, W): its
+    features, input gradient, parameter gradients and state under the
+    loss sum(features * c)."""
+    trunk = RegNetY("rny002", **FUSED_TRUNK).double()
+    trunk.load_state_dict(state_dict, strict=True)
+    if group is not None:
+        mesh.distribute(trunk, group)
+    x = x.contiguous(memory_format=torch.channels_last).requires_grad_(True)
+    y = trunk.train()(x)
+    (y * c).sum().backward()
+    return {"y": y.detach(), "x_grad": x.grad,
+            "grads": {n: p.grad for n, p in trunk.named_parameters()},
+            "state": trunk.state_dict()}
+
+
 def step_cases(rank: int, world: int, port: int, root: str) -> None:
     """The cases of tests/test_torch_ddp.py on one rank."""
     torch.set_num_threads(1)
@@ -135,10 +160,15 @@ def step_cases(rank: int, world: int, port: int, root: str) -> None:
         loss.backward()
         out["ce"] = {"loss": loss.detach(), "grad": logits.grad}
 
+        # the fused trunk units over the global batch, float64
+        out["trunk"] = fused_trunk_run(
+            inputs["trunk_state"], rows(inputs["trunk_x"], rank, world),
+            rows(inputs["trunk_c"], rank, world), torch.distributed.group.WORLD)
+
         # train steps
-        for name, mixup, acc, dtype, replaced in STEP_CASES:
+        for name, mixup, acc, dtype, replaced, fuse in STEP_CASES:
             batch = {k: rows(v, rank, world, acc) for k, v in inputs["batch"].items()}
-            step = make_step(inputs["state"], dtype, mixup, acc, distributed=True)
+            step = make_step(inputs["state"], dtype, mixup, acc, distributed=True, fuse=fuse)
             augmented = None
             if replaced:
                 augmented = [rows(inputs["augmented"], rank, world)]

@@ -137,11 +137,23 @@ Phases, each fatal on failure:
      9b's numbers; 12d: cli.train over a phase-7 dataset with phase 7's
      config plus both knobs, 1 epoch: a finite loss, checkpoint_last, one
      photometric launch a step.
+  13. the measuring tools (tdeed_tpu_torch/tools/), in process at reduced
+     counts: bench (3 + 10 flagship steps, predict 20 + 20 calls, SoccerNet
+     Ball challenge training at acc_grad_iter 2 for 2 + 3 steps, the input
+     path on 120 frames), bench_snb's k1 and plain variants at
+     acc_grad_iter 2 (2 + 3 steps), bench_input on 120 frames, profile_step
+     with a torch.profiler trace of 3 steps, and profile_infer at SoccerNet
+     Ball's geometry at batch 4 with the window aggregation: every JSON
+     line parses and names phase 1's card, every number is finite and
+     positive, K1 launches once a micro-batch on the k1 paths and never on
+     plain, the trace holds device time with K1's kernel among its ops
+     (its time inside the step joins the kernel's line), and device and
+     host aggregation give the same bits.
 
 The line before the last is a JSON object with each kernel's route, the
 TPU kernel it replaces, its launches on its paths (phases 5-7, phase 8,
-phase 9, phase 10, phase 11 and phase 12 for the photometric kernel, each
-counted from 0, and their sum; the
+phase 9, phase 10, phase 11, phase 12 and phase 13 for the photometric
+kernel, each counted from 0, and their sum; the
 probe tool's run for the probe kernels), its
 largest error against the plain version, its time, the plain version's,
 the one PyTorch call's that computes the same function (null where there
@@ -295,10 +307,11 @@ def log(msg: str) -> None:
 def device_phase(torch):
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke run needs a CUDA GPU")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip().splitlines()[0]
+    try:
+        from tdeed_tpu_torch.utils.profiling import card
+    except ImportError as e:
+        fail(f"the port is not importable here ({e}); run from the repository root")
+    smi = card()["smi"]
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     log(f"[device] torch {torch.__version__} cuda {torch.version.cuda}; "
@@ -2756,14 +2769,145 @@ def fused_cli_phase(torch, smi):
         frame_io.get_decoder = get_decoder
 
 
+def _measured(result, text, what, smi, zero_ok=("ms_by_region",)):
+    """The tool's printed JSON line (the last line of its output) parses,
+    equals what its main returned, names phase 1's card, and every number
+    in it is finite and positive (a key of ``zero_ok`` on the path may be
+    0: a region that launched nothing)."""
+    try:
+        printed = json.loads(text.strip().splitlines()[-1])
+    except (IndexError, json.JSONDecodeError) as e:
+        fail(f"{what}: its last line is not JSON ({e}): {text[-2000:]}")
+    if printed != json.loads(json.dumps(result)):
+        fail(f"{what}: the printed JSON differs from what main returned")
+    if printed.get("platform") != "gpu" or printed["card"]["smi"] != smi:
+        fail(f"{what}: ran on {printed.get('platform')} {printed.get('card')}, not {smi!r}")
+
+    def walk(obj, path):
+        if isinstance(obj, dict):
+            for k, v in obj.items():
+                walk(v, path + (k,))
+        elif isinstance(obj, list):
+            for v in obj:
+                walk(v, path)
+        elif isinstance(obj, (int, float)) and not isinstance(obj, bool):
+            if not math.isfinite(obj) or obj < 0 or (
+                    obj == 0 and not any(z in path for z in zero_ok)):
+                fail(f"{what}: {'/'.join(path)} = {obj}")
+
+    walk(printed, ())
+    return printed
+
+
+def measure_tools_phase(torch, smi, k1):
+    """13: the measuring tools in process at reduced counts: the bench
+    (3 + 10 flagship steps, 2 + 3 SoccerNet Ball steps), bench_snb's k1
+    and plain variants at acc_grad_iter 2 (2 + 3 steps), bench_input on
+    120 frames, profile_step with a trace of 3 steps, profile_infer at the
+    SoccerNet Ball geometry at batch 4 with the window aggregation. Each
+    JSON line parses, names phase 1's card and holds finite positive
+    numbers; K1 launches once a micro-batch on the k1 paths and never on
+    plain; the trace holds device time and every launch's device record,
+    with K1's kernel among its ops once a step;
+    the two aggregations give the same bits. Adds K1's time inside the
+    step (from the trace) to ``k1``; returns the photometric launches."""
+    import tempfile
+
+    from tdeed_tpu_torch.kernels.augment import photometric
+    from tdeed_tpu_torch.tools import bench, bench_input, bench_snb, profile_infer, profile_step
+
+    t0 = time.perf_counter()
+    launches = photometric.launches
+    res, text, sec = _tool(bench.main, ["--snb_warmup", "2", "--snb_steps", "3"], "13 bench")
+    out = _measured(res, text, "13 bench", smi)
+    for key, want in (("train_k1_launches_per_step", 1), ("snb_k1_launches_per_step", 2)):
+        if out[key] != want:
+            fail(f"13 bench: {key} = {out[key]}, not {want}")
+    log(f"[tools] bench ({sec:.1f} s): train {out['train_frames_per_sec']['median']:.1f} "
+        f"frames/s (median of {out['train_frames_per_sec']['n']}, min "
+        f"{out['train_frames_per_sec']['min']:.1f}, max {out['train_frames_per_sec']['max']:.1f}), "
+        f"peak {out['train_peak_gib']:.2f} GiB; predict plain "
+        f"{out['predict_frames_per_sec_plain']:.1f}, hflip {out['predict_frames_per_sec_hflip']:.1f} "
+        f"frames/s; SoccerNet Ball acc 2 {out['snb_challenge_train_frames_per_sec_acc2']:.1f} "
+        f"frames/s, peak {out['snb_peak_gib']:.2f} GiB; input "
+        f"{out['input_frames_per_sec']:.1f} cold, {out['input_frames_per_sec_cached']:.1f} "
+        f"cached; {smi}")
+    log(text.strip().splitlines()[-1])
+    torch.cuda.empty_cache()
+
+    argv = ["--variants", "k1,plain", "--acc", "2", "--warmup", "2", "--steps", "3"]
+    res, text, sec = _tool(bench_snb.main, argv, "13 bench_snb")
+    out = _measured(res, text, "13 bench_snb", smi,
+                    zero_ok=("ms_by_region", "k1_launches_per_step"))
+    if out["k1"]["k1_launches_per_step"] != 2 or out["plain"]["k1_launches_per_step"] != 0:
+        fail(f"13 bench_snb: K1 launches a step {out['k1']['k1_launches_per_step']} (k1), "
+             f"{out['plain']['k1_launches_per_step']} (plain); want 2 and 0")
+    log(f"[tools] bench_snb acc 2 ({sec:.1f} s): " + "; ".join(
+        f"{v} {out[v]['step_ms']['median']:.1f} ms ({out[v]['frames_per_sec']:.1f} frames/s, "
+        f"{out[v]['peak_gib']:.2f} GiB, K1 {out[v]['k1_launches_per_step']:g} a step)"
+        for v in ("k1", "plain")) + f"; predict {out['predict']['frames_per_sec']:.1f} frames/s")
+    torch.cuda.empty_cache()
+
+    res, text, sec = _tool(bench_input.main, ["--frames", "120", "--batches", "3"],
+                           "13 bench_input")
+    try:
+        printed = json.loads(text.strip().splitlines()[-1])
+    except (IndexError, json.JSONDecodeError) as e:
+        fail(f"13 bench_input: its last line is not JSON ({e})")
+    bad = {k: v for k, v in printed.items() if isinstance(v, (int, float))
+           and not (math.isfinite(v) and v > 0)}
+    if bad or printed != json.loads(json.dumps(res)):
+        fail(f"13 bench_input: {bad or 'printed JSON differs from the result'}")
+    log(f"[tools] bench_input ({sec:.1f} s): " + ", ".join(
+        f"{k} {v:.1f}" for k, v in printed.items() if k.startswith(("decode", "pipeline"))))
+
+    with tempfile.TemporaryDirectory() as logdir:
+        res, text, sec = _tool(profile_step.main, ["--trace", logdir, "--iters", "5"],
+                               "13 profile_step")
+    out = _measured(res, text, "13 profile_step", smi, zero_ok=("ms_by_region", "dropped"))
+    tr = out["trace"]
+    k1_op = tr["ms_by_op"].get(tr["k1_kernel"]) if tr["k1_kernel"] else None
+    # the trace holds every launch (device_breakdown raised on a lost
+    # record): K1's kernel once a step, as the wrapper counted
+    if (k1_op is None or tr["dropped"] != 0
+            or not k1_op["calls"] == tr["k1_launches"] == tr["steps"]):
+        fail(f"13 profile_step: K1's kernel {tr['k1_kernel']} with {k1_op} in the trace "
+             f"of {tr['steps']} steps ({tr['k1_launches']} launches counted, "
+             f"{tr['dropped']} of {tr['launches']} launches without a device record)")
+    if tr["ms_by_region"]["K1"] < k1_op["ms"]:
+        fail(f"13 profile_step: the K1 region holds {tr['ms_by_region']['K1']} ms of device "
+             f"time, less than K1's kernel's {k1_op['ms']} ms: its launch is not linked")
+    k1["in_step_ms"] = k1_op["ms"] / k1_op["calls"]
+    log(f"[tools] profile_step ({sec:.1f} s): " + "; ".join(
+        f"{k} {v['ms']['median']:.2f} ms" for k, v in out["components"].items()))
+    log(f"[tools] trace of {tr['steps']} steps ({tr['launches']} kernel launches, "
+        f"{tr['dropped']} lost): wall {tr['wall_ms']:.1f} ms, device busy "
+        f"{tr['busy_ms']:.1f} ms ({tr['busy_share']:.1%}), idle {tr['idle_share']:.1%}; K1 "
+        f"{k1['in_step_ms']:.4f} ms a launch inside the step ({tr['k1_kernel'][:60]}); "
+        f"by region " + ", ".join(f"{k} {v:.1f}" for k, v in tr["ms_by_region"].items()))
+    log("[tools] top ops: " + "; ".join(
+        f"{v['ms']:.1f} ms x{v['calls']} {k[:50]}" for k, v in list(tr["ms_by_op"].items())[:8]))
+    torch.cuda.empty_cache()
+
+    argv = ["--snb", "--batches", "4", "--agg", "--iters", "5"]
+    res, text, sec = _tool(profile_infer.main, argv, "13 profile_infer")
+    out = _measured(res, text, "13 profile_infer", smi)
+    if out["agg"]["equal_bits"] is not True:
+        fail("13 profile_infer: device and host aggregation differ")
+    log(f"[tools] profile_infer ({sec:.1f} s): flagship predict "
+        f"{out['predict']['frames_per_sec']:.1f} frames/s; SoccerNet Ball b4 "
+        f"{out['snb']['b4']['frames_per_sec']:.1f} frames/s; {out['agg']['windows']} windows: "
+        f"device aggregation {out['agg']['device_agg_s']:.2f} s, host "
+        f"{out['agg']['host_agg_s']:.2f} s, the same bits; {smi}")
+    torch.cuda.empty_cache()
+    log(f"[tools] phase 13: {time.perf_counter() - t0:.1f} s")
+    return photometric.launches - launches
+
+
 def main() -> int:
     import torch
 
     smi = device_phase(torch)
-    try:
-        import tdeed_tpu_torch  # noqa: F401
-    except ImportError as e:
-        fail(f"the port is not importable here ({e}); run from the repository root")
     from tdeed_tpu_torch import load_config
     from tdeed_tpu_torch.kernels.augment import photometric
 
@@ -2828,8 +2972,14 @@ def main() -> int:
     if phase12_launches != photometric.launches:
         fail(f"phase 12 counted {phase12_launches} photometric launches of "
              f"{photometric.launches}")
+    torch.cuda.empty_cache()
+    photometric.launches = 0
+    phase13_launches = measure_tools_phase(torch, smi, k1)
+    if phase13_launches != photometric.launches:
+        fail(f"phase 13 counted {phase13_launches} photometric launches of "
+             f"{photometric.launches}")
     k1["launches"] = (flagship_launches + snb_launches + phase9_launches + phase10_launches
-                      + phase11_launches + phase12_launches)
+                      + phase11_launches + phase12_launches + phase13_launches)
     k1["launches_by_path"] = {"phases 5-7 (FineDiving_small)": flagship_launches,
                               "phase 8 (SoccerNetBall_challenge2)": snb_launches,
                               "phase 9 (GSM and plain trunks, checkpoint_backbone)":
@@ -2839,14 +2989,16 @@ def main() -> int:
                               "phase 11 (cli.train from JPEG frames, tools.overfit_check)":
                                   phase11_launches,
                               "phase 12 (fuse_entry and fuse_shift: flagship steps on and "
-                              "off, SoccerNet Ball steps, cli.train)": phase12_launches}
+                              "off, SoccerNet Ball steps, cli.train)": phase12_launches,
+                              "phase 13 (the measuring tools: bench, bench_snb, "
+                              "profile_step)": phase13_launches}
     k1["max_abs_err"] = max(k1["max_abs_err"], snb["step_max_abs_err"])
     k1.update({f"snb_{k}": v for k, v in snb.items()})
 
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in (
-        "jax", "jaxlib", "flax", "optax", "tdeed_tpu"))
+        "jax", "jaxlib", "flax", "optax", "tdeed_tpu", "tools"))
     if leaked:
-        fail(f"JAX or the JAX package was imported: {leaked}")
+        fail(f"JAX, the JAX package or the repo's JAX-side tools were imported: {leaked}")
     kernels = [k1, *probes]
     for k in kernels:
         k["lib_ms"] = k["library_ms"]

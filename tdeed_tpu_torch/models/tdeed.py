@@ -19,6 +19,7 @@ import torch.nn as nn
 from tdeed_tpu_torch.models.heads import FC2Layers, FCLayers
 from tdeed_tpu_torch.models.regnet import ARCH_PARAMS, RegNetY
 from tdeed_tpu_torch.models.sgp import EDSGPMixer
+from tdeed_tpu_torch.utils.profiling import annotate
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -90,22 +91,25 @@ class TDEED(nn.Module):
             raise ValueError(f"clip length {t} != model clip_len {self.clip_len}")
         keep = dropout_keep or {}
         # (B*T, 3, H, W) view in channels_last memory: no copy
-        x = frames.reshape(b * t, h, w, c).permute(0, 3, 1, 2).to(self.dtype)
-        feat = self._features(x).reshape(b, t, -1)
-        feat = feat + self.temp_enc.to(feat.dtype)
-        feat = self._temp_fine(feat)
+        with annotate("trunk"):
+            x = frames.reshape(b * t, h, w, c).permute(0, 3, 1, 2).to(self.dtype)
+            feat = self._features(x).reshape(b, t, -1)
+        with annotate("temporal"):
+            feat = feat + self.temp_enc.to(feat.dtype)
+            feat = self._temp_fine(feat)
         out = {}
-        if self._pred_displ is not None:
-            out["displ"] = self._pred_displ(
-                feat, keep.get("pred_displ")
-            )[..., 0].float()
-        if self.two_heads is None:
-            logits = self._pred_fine(feat, keep.get("pred_fine"))
-        else:
-            logits = self._pred_fine(
-                feat, keep.get("pred_fine.fc1"), keep.get("pred_fine.fc2")
-            )
-        out["logits"] = logits.float()
+        with annotate("heads"):
+            if self._pred_displ is not None:
+                out["displ"] = self._pred_displ(
+                    feat, keep.get("pred_displ")
+                )[..., 0].float()
+            if self.two_heads is None:
+                logits = self._pred_fine(feat, keep.get("pred_fine"))
+            else:
+                logits = self._pred_fine(
+                    feat, keep.get("pred_fine.fc1"), keep.get("pred_fine.fc2")
+                )
+            out["logits"] = logits.float()
         return out
 
 

@@ -27,8 +27,6 @@ bound share and no trace.
 from __future__ import annotations
 
 import argparse
-import shutil
-import subprocess
 from dataclasses import dataclass
 from pathlib import Path
 from typing import Callable, List, Optional, Sequence, Tuple
@@ -43,6 +41,7 @@ from tdeed_tpu_torch.utils.profiling import (
     PEAK_BYTES_PER_S,
     PEAK_FP32_FLOPS,
     bound,
+    card,
     time_fn,
     trace,
 )
@@ -159,14 +158,7 @@ def run(v: Variant, device) -> Result:
 def _device_line(device) -> str:
     if torch.device(device).type != "cuda":
         return "device: cpu (the plain PyTorch versions; no device time is measured)"
-    line = f"device: {torch.cuda.get_device_name(device)}"
-    if shutil.which("nvidia-smi"):
-        smi = subprocess.run(
-            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-            capture_output=True, text=True, timeout=60,
-        )
-        line += f"; nvidia-smi: {smi.stdout.strip().splitlines()[0] if smi.stdout else 'no answer'}"
-    return line
+    return f"device: {torch.cuda.get_device_name(device)}; nvidia-smi: {card()['smi']}"
 
 
 def _report(r: Result, base: Optional[Result], on_card: bool) -> None:

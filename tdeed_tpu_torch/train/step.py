@@ -40,6 +40,14 @@ last micro-batch. The val step's loss is the global batch's.
 device in place of the kernel (``train_preprocess_plain``); None and True
 launch the kernel on a CUDA device. On the CPU every setting runs the
 plain chain.
+
+Regions: ``annotate`` spans (utils/profiling.py) name a step's stages in
+a ``torch.profiler`` trace: ``crop``, ``mixup``, ``K1`` (``augment_plain``
+where the plain chain runs: the plain route, or any route on the CPU),
+the model's ``trunk``, ``temporal`` and ``heads`` (models/tdeed.py),
+``loss``, ``backward`` and ``optimizer``; the predict step's ``forward``.
+They launch nothing and change no number; ``torch.export`` leaves them
+out of the serving programs (tests/test_torch_export.py).
 """
 
 from __future__ import annotations
@@ -183,9 +191,14 @@ class TrainStep:
         # One crop offset for the whole micro-batch and a pointwise blend, so
         # crop-then-blend equals blend-then-crop; cropping first blends
         # fewer pixels (tdeed_tpu/train/step.py:92-101).
-        frames = augment.random_crop_batch(
-            _on(batch["frame"], dev), self.crop_dim, draws.crop
-        )
+        with annotate("crop"):
+            frames = augment.random_crop_batch(
+                _on(batch["frame"], dev), self.crop_dim, draws.crop
+            )
+            if self.mixup:
+                frames2 = augment.random_crop_batch(
+                    _on(batch["frame2"], dev), self.crop_dim, draws.crop
+                )
         label = _on(batch["label"], dev).long()
         label_d = _on(batch.get("labelD"), dev)
         dataset_id = _on(batch.get("dataset"), dev)
@@ -194,9 +207,6 @@ class TrainStep:
             label = _head2_offset(label, dataset_id, self.num_classes_bg)
         soft = None
         if self.mixup:
-            frames2 = augment.random_crop_batch(
-                _on(batch["frame2"], dev), self.crop_dim, draws.crop
-            )
             label2 = _on(batch["label2"], dev).long()
             if routed:
                 label2 = _head2_offset(label2, dataset_id, self.num_classes_bg)
@@ -206,29 +216,33 @@ class TrainStep:
                     draws.lam.to(dev), self.total_bg,
                     label_d, _on(batch.get("labelD2"), dev),
                 )
-        preprocess = self.preprocess or (
-            train_preprocess_plain if self.pallas_augment is False else train_preprocess)
-        x = preprocess(frames, draws.aug.to(dev, non_blocking=True))
+        kernel = self.preprocess is None and self.pallas_augment is not False
+        preprocess = self.preprocess or (train_preprocess if kernel else train_preprocess_plain)
+        # the region names the route taken: the kernel runs on a CUDA tensor only
+        with annotate("K1" if kernel and frames.is_cuda else "augment_plain"):
+            x = preprocess(frames, draws.aug.to(dev, non_blocking=True))
         keep = {k: v.to(dev, non_blocking=True) for k, v in draws.dropout_keep.items()}
         out = self.model(x, dropout_keep=keep)
 
-        logits = out["logits"]
-        c = logits.shape[-1]
-        if routed:
-            loss = double_head_ce(
-                logits, soft if soft is not None else label, dataset_id,
-                self.num_classes_bg, self.weights, self.weights2, soft=soft is not None,
-            )
-        elif soft is not None:
-            loss = weighted_ce_soft(
-                logits.reshape(-1, c), soft.reshape(-1, c), self.weights
-            )
-        else:
-            loss = weighted_ce_hard(
-                logits.reshape(-1, c), label.reshape(-1), self.weights, self.group
-            )
-        if self.radi_displacement > 0 and label_d is not None:
-            loss = loss + displacement_mse(out["displ"], label_d)
+        with annotate("loss"):
+            logits = out["logits"]
+            c = logits.shape[-1]
+            if routed:
+                loss = double_head_ce(
+                    logits, soft if soft is not None else label, dataset_id,
+                    self.num_classes_bg, self.weights, self.weights2,
+                    soft=soft is not None,
+                )
+            elif soft is not None:
+                loss = weighted_ce_soft(
+                    logits.reshape(-1, c), soft.reshape(-1, c), self.weights
+                )
+            else:
+                loss = weighted_ce_hard(
+                    logits.reshape(-1, c), label.reshape(-1), self.weights, self.group
+                )
+            if self.radi_displacement > 0 and label_d is not None:
+                loss = loss + displacement_mse(out["displ"], label_d)
         return loss
 
     def __call__(self, batch, draws: Optional[Sequence[StepDraws]] = None
@@ -253,15 +267,17 @@ class TrainStep:
         for i, d in enumerate(draws):
             micro = {k: v[i * b:(i + 1) * b] for k, v in batch.items()}
             loss = self._loss(micro, d, dev)
-            (loss / self.acc_grad_iter).backward()
+            with annotate("backward"):
+                (loss / self.acc_grad_iter).backward()
             total = loss.detach() if total is None else total + loss.detach()
         if self.group is not None:
             # once per optimizer step: the gradients and the loss in one
             # all-reduce per dtype
             grads = [p.grad for p in self.model.parameters() if p.grad is not None]
             mesh.all_reduce_mean_(grads + [total], self.group)
-        self.optimizer.step()
-        self.scheduler.step()
+        with annotate("optimizer"):
+            self.optimizer.step()
+            self.scheduler.step()
         self.step += 1
         return {"loss": total / self.acc_grad_iter}
 
@@ -348,15 +364,16 @@ def predict_scores(model, frames, *, crop_dim: Optional[int], radi_displacement:
     already on the model's device, in the model's current mode: (argmax
     (B, T), scores (B, T, C)). The serving export (infer/export.py) traces
     it."""
-    x = augment.eval_preprocess(frames, crop_dim, hflip)
-    out = model(x)
-    logits = out["logits"]
-    if model.two_heads is not None:
-        logits = logits[..., :model.two_heads[0]]
-    probs = torch.softmax(logits, dim=-1)
-    if radi_displacement > 0:
-        probs = decode_displacement(probs, out["displ"])
-    return probs.argmax(dim=-1), probs
+    with annotate("forward"):
+        x = augment.eval_preprocess(frames, crop_dim, hflip)
+        out = model(x)
+        logits = out["logits"]
+        if model.two_heads is not None:
+            logits = logits[..., :model.two_heads[0]]
+        probs = torch.softmax(logits, dim=-1)
+        if radi_displacement > 0:
+            probs = decode_displacement(probs, out["displ"])
+        return probs.argmax(dim=-1), probs
 
 
 def make_predict_step(model, *, crop_dim: Optional[int], radi_displacement: int):

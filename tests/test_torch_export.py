@@ -81,6 +81,15 @@ def test_exported_predictor_equals_the_predict_step(run, hflip):
     assert not torch.equal(probs, ep(run["frames"], hflip=not hflip)[1])
 
 
+def test_exported_programs_hold_no_profiler_ops(run):
+    """The predict step's ``annotate`` regions (train/step.py,
+    models/tdeed.py) stay out of the serving programs: no profiler op in
+    either graph."""
+    for hflip, module in run["ep"]._calls.items():
+        targets = [str(n.target) for n in module.graph.nodes if n.op == "call_function"]
+        assert targets and not [t for t in targets if "profiler" in t], hflip
+
+
 @pytest.fixture(scope="module")
 def jax_artifact(run):
     """The JAX package's export of the same weights (through

@@ -38,15 +38,16 @@ SHIPPED = sorted(p.stem for p in (REPO / "configs").glob("*/*.json"))
 
 def test_importing_every_port_module_leaves_jax_out():
     """In a fresh interpreter: import every module of the package, then
-    no jax/flax/optax module is loaded, and no module of the JAX package
-    (the port keeps its own copy of the JAX-free config)."""
+    no jax/flax/optax module is loaded, no module of the JAX package (the
+    port keeps its own copy of the JAX-free config) and none of the repo's
+    JAX-side ``tools`` (the port's measuring tools keep their own copies)."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import tdeed_tpu_torch\n"
         "mods = [m.name for m in pkgutil.walk_packages(tdeed_tpu_torch.__path__, 'tdeed_tpu_torch.')]\n"
         "for m in mods: importlib.import_module(m)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax'))\n"
-        "ref = sorted(m for m in sys.modules if m.split('.')[0] == 'tdeed_tpu')\n"
+        "ref = sorted(m for m in sys.modules if m.split('.')[0] in ('tdeed_tpu', 'tools'))\n"
         "new = [m for m in ('tdeed_tpu_torch.metrics.soccernet', "
         "'tdeed_tpu_torch.cli.evaluate_challenge', 'tdeed_tpu_torch.infer.export', "
         "'tdeed_tpu_torch.cli.export_model', 'tdeed_tpu_torch.parallel', "
@@ -54,7 +55,10 @@ def test_importing_every_port_module_leaves_jax_out():
         "'tdeed_tpu_torch.cli.extract_frames', 'tdeed_tpu_torch.tools.fixtures', "
         "'tdeed_tpu_torch.tools.validate_reference_checkpoint', "
         "'tdeed_tpu_torch.tools.overfit_check', 'tdeed_tpu_torch.tools.drive_e2e', "
-        "'tdeed_tpu_torch.tools.convergence_check', 'tdeed_tpu_torch.kernels.fused_block') "
+        "'tdeed_tpu_torch.tools.convergence_check', 'tdeed_tpu_torch.kernels.fused_block', "
+        "'tdeed_tpu_torch.tools.bench', 'tdeed_tpu_torch.tools.bench_snb', "
+        "'tdeed_tpu_torch.tools.bench_input', 'tdeed_tpu_torch.tools.profile_step', "
+        "'tdeed_tpu_torch.tools.profile_infer', 'tdeed_tpu_torch.tools.measure') "
         "if m not in sys.modules]\n"
         "print(len(mods), new, bad, ref)\n"
     )
@@ -62,7 +66,7 @@ def test_importing_every_port_module_leaves_jax_out():
         [sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
         timeout=120, check=True,
     ).stdout.split(" ", 1)
-    assert int(out[0]) >= 60, out  # every module of the slice was imported
+    assert int(out[0]) >= 66, out  # every module of the slice was imported
     assert out[1].strip() == "[] [] []"
 
 

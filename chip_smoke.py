@@ -2864,7 +2864,8 @@ def measure_tools_phase(torch, smi, k1):
     with tempfile.TemporaryDirectory() as logdir:
         res, text, sec = _tool(profile_step.main, ["--trace", logdir, "--iters", "5"],
                                "13 profile_step")
-    out = _measured(res, text, "13 profile_step", smi, zero_ok=("ms_by_region", "dropped"))
+    out = _measured(res, text, "13 profile_step", smi,
+                    zero_ok=("ms_by_region", "host_cpu_ms_by_region", "dropped"))
     tr = out["trace"]
     k1_op = tr["ms_by_op"].get(tr["k1_kernel"]) if tr["k1_kernel"] else None
     # the trace holds every launch (device_breakdown raised on a lost
@@ -2882,7 +2883,8 @@ def measure_tools_phase(torch, smi, k1):
         f"{k} {v['ms']['median']:.2f} ms" for k, v in out["components"].items()))
     log(f"[tools] trace of {tr['steps']} steps ({tr['launches']} kernel launches, "
         f"{tr['dropped']} lost): wall {tr['wall_ms']:.1f} ms, device busy "
-        f"{tr['busy_ms']:.1f} ms ({tr['busy_share']:.1%}), idle {tr['idle_share']:.1%}; K1 "
+        f"{tr['busy_ms']:.1f} ms, idle {tr['idle_share_untraced']:.1%} of the untraced step; "
+        f"host CPU {tr['host_cpu_ms_per_step']:.1f} ms a step; K1 "
         f"{k1['in_step_ms']:.4f} ms a launch inside the step ({tr['k1_kernel'][:60]}); "
         f"by region " + ", ".join(f"{k} {v:.1f}" for k, v in tr["ms_by_region"].items()))
     log("[tools] top ops: " + "; ".join(

@@ -19,7 +19,7 @@ import torch.nn as nn
 from tdeed_tpu_torch.models.heads import FC2Layers, FCLayers
 from tdeed_tpu_torch.models.regnet import ARCH_PARAMS, RegNetY
 from tdeed_tpu_torch.models.sgp import EDSGPMixer
-from tdeed_tpu_torch.utils.profiling import annotate
+from tdeed_tpu_torch.utils.profiling import BackwardSegments, annotate
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -37,6 +37,10 @@ class TDEED(nn.Module):
     None for the plain trunk) in s3/s4; ``checkpoint_backbone`` recomputes
     its activations in the backward pass, ``fuse_entry`` and ``fuse_shift``
     train it through the fused units (models/regnet.py).
+    With grad enabled the forward marks each layer's last output, so that
+    the backward runs in the profiler regions ``backward.heads``,
+    ``backward.temporal`` and ``backward.trunk`` in turn
+    (utils/profiling.BackwardSegments); with grad disabled it marks nothing.
     Train/eval mode is the module's (``.train()`` / ``.eval()``): it picks
     batch or running BN statistics. ``dropout_keep`` maps the names in
     ``dropout_heads`` ('pred_fine', or 'pred_fine.fc1' and 'pred_fine.fc2'
@@ -90,13 +94,17 @@ class TDEED(nn.Module):
         if t != self.clip_len:
             raise ValueError(f"clip length {t} != model clip_len {self.clip_len}")
         keep = dropout_keep or {}
+        # with grad on, each layer's last output opens its backward region
+        segments = BackwardSegments()
         # (B*T, 3, H, W) view in channels_last memory: no copy
         with annotate("trunk"):
             x = frames.reshape(b * t, h, w, c).permute(0, 3, 1, 2).to(self.dtype)
             feat = self._features(x).reshape(b, t, -1)
+            segments.mark(feat, "backward.trunk")
         with annotate("temporal"):
             feat = feat + self.temp_enc.to(feat.dtype)
             feat = self._temp_fine(feat)
+            segments.mark(feat, "backward.temporal")
         out = {}
         with annotate("heads"):
             if self._pred_displ is not None:
@@ -110,6 +118,8 @@ class TDEED(nn.Module):
                     feat, keep.get("pred_fine.fc1"), keep.get("pred_fine.fc2")
                 )
             out["logits"] = logits.float()
+            for y in out.values():
+                segments.mark(y, "backward.heads")
         return out
 
 

@@ -11,9 +11,7 @@ input path (port of bench.py).
    order), two distinct batches on the card before timing, cycled; 3
    warm-up steps, then 10 timed steps, each on the host clock and ending
    in ``torch.cuda.synchronize()``. ``train_frames_per_sec`` is the
-   median over the timed steps with n, min and max; ``vs_baseline``
-   divides it by the derived A100 bound of bench.py (3,500 frames/s,
-   BASELINE.md).
+   median over the timed steps with n, min and max.
 2. Predict (bench.py's eval batch 4, frames on the card, the center crop):
    20 calls plain and 20 with the hflip TTA, interleaved call by call
    after 5 untimed rounds, two distinct batches cycled.
@@ -53,8 +51,6 @@ import torch
 from tdeed_tpu_torch.tools import measure
 from tdeed_tpu_torch.utils.profiling import peak_gib, platform, reset_peak
 
-A100_BASELINE_FPS = 3500.0  # derived bound of bench.py; derivation in BASELINE.md
-
 
 def main(argv: Optional[Sequence[str]] = None) -> dict:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -89,7 +85,6 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
                                                    train["step_ms"]["min"])]
     out = {"tool": "bench", "metric": "train_frames_per_sec", "value": fps[1],
            "unit": "frames/s", **where,
-           "vs_baseline": fps[1] / A100_BASELINE_FPS,
            "fuse_entry": args.fuse_entry, "fuse_shift": args.fuse_shift,
            "train_frames_per_sec": {"median": fps[1], "min": fps[0], "max": fps[2],
                                     "n": train["step_ms"]["n"]},

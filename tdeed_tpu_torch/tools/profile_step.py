@@ -21,14 +21,27 @@ in a synchronize, over two distinct inputs cycled:
 ``--trace DIR`` also captures 3 steady train steps with ``torch.profiler``
 (after a traced step it throws away; the Chrome trace in DIR/trace.json)
 and reduces them with ``utils.profiling.device_breakdown``: device ms by
-op (top 20) and by the step's regions (crop, mixup, K1, trunk, temporal,
-heads, loss, backward, optimizer), the busy and idle share of the window,
-the kernel launches and those the trace lost (``dropped``, which must be
-0), and K1's kernel with its launches in the window. The profiler's own host work slows the
-traced steps, so beside the window's idle share stands
-``idle_share_untraced``: 1 - the device's busy ms a traced step over the
-untraced step's median. This is the committed breakdown the records
-quote. Prints one JSON line.
+op (top 20) and by the step's regions (``ms_by_region``: draw, zero_grad,
+crop, mixup, K1, trunk, temporal, heads, loss, backward with
+backward.heads, backward.temporal and backward.trunk inside it,
+optimizer), the device's busy ms, the kernel launches and those the trace
+lost (``dropped``, which must be 0), and K1's kernel with its launches in
+the window. Beside the device ms by region stands ``host_cpu_ms_by_region``:
+the CPU ms the host thread of each region used over the same 3 steps
+(the steps' records in ``utils.profiling.STEPS``; the backward segments'
+on the autograd engine's thread), with ``host_cpu_ms_per_step``; a region
+whose host CPU exceeds its device ms is one the host is slower to issue
+than the card is to run, or one that waits for the card (CUDA spins at a
+synchronous copy or a full launch queue, and the spin reads as CPU). The profiler's own host
+work is in these steps' CPU too. The 3 steps' records are also written, on the
+trace's clock, to DIR/spans.json: ``trace_start_ns`` (the Unix ns the
+trace's times count from) and one entry a step (``utils.profiling
+.record_json``: start and end in microseconds after it, host, main and
+worker CPU ms, and each span's name, parent index, thread, start, end and
+CPU ms). The profiler's own host work slows the traced steps, so the
+idle share stands only untraced, ``idle_share_untraced``: 1 - the
+device's busy ms a traced step over the untraced step's median. This is
+the committed breakdown the records quote. Prints one JSON line.
 
 ``--device cpu`` runs the same at a tiny size (batch 2 x clip 8, 40x40
 frames cropped to 32, fp32): host times of the plain versions, "platform":
@@ -39,13 +52,21 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 from typing import Dict, Optional, Sequence
 
 import numpy as np
 import torch
 
 from tdeed_tpu_torch.tools import measure
-from tdeed_tpu_torch.utils.profiling import device_breakdown, platform, trace
+from tdeed_tpu_torch.utils.profiling import (
+    STEPS,
+    device_breakdown,
+    host_cpu_by_region,
+    platform,
+    record_json,
+    trace,
+)
 
 TRACE_STEPS = 3
 TOP_OPS = 20
@@ -56,7 +77,9 @@ def trace_train_steps(step, batches, logdir: Optional[str], device) -> Dict[str,
     after one traced step thrown away (``trace``'s ``warmup``), each ending
     in a synchronize as the untimed steps do; reduced by
     ``device_breakdown``, with K1's kernel (the op whose name holds
-    "photometric") and its launches in the window."""
+    "photometric") and its launches in the window, and the traced steps'
+    host CPU by region from their records (written to
+    ``logdir``/spans.json when ``logdir`` is given)."""
     from tdeed_tpu_torch.kernels.augment import photometric
 
     on_card = torch.device(device).type == "cuda"
@@ -68,8 +91,19 @@ def trace_train_steps(step, batches, logdir: Optional[str], device) -> Dict[str,
             if on_card:
                 torch.cuda.synchronize(device)
             prof.step()
+    records = [r for r in list(STEPS.records)[-TRACE_STEPS:] if r.profiled]
+    if len(records) != TRACE_STEPS:
+        raise RuntimeError(f"{len(records)} of the {TRACE_STEPS} traced steps left a "
+                           "profiled record")
     out = {"steps": TRACE_STEPS,
-           **device_breakdown(prof, device, top=TOP_OPS, always=("photometric",))}
+           **device_breakdown(prof, device, top=TOP_OPS, always=("photometric",)),
+           "host_cpu_ms_by_region": host_cpu_by_region(records),
+           "host_cpu_ms_per_step": sum(r.host_cpu_ns for r in records) / 1e6 / TRACE_STEPS}
+    if logdir is not None:
+        t0 = prof.profiler.kineto_results.trace_start_ns()
+        with open(os.path.join(logdir, "spans.json"), "w") as f:
+            json.dump({"trace_start_ns": t0, "steps": [record_json(r, t0) for r in records]},
+                      f)
     k1 = sorted(name for name in out["ms_by_op"] if "photometric" in name)
     out["k1_kernel"] = k1[0] if k1 else None
     out["k1_launches"] = photometric.launches - launches

@@ -42,12 +42,18 @@ launch the kernel on a CUDA device. On the CPU every setting runs the
 plain chain.
 
 Regions: ``annotate`` spans (utils/profiling.py) name a step's stages in
-a ``torch.profiler`` trace: ``crop``, ``mixup``, ``K1`` (``augment_plain``
-where the plain chain runs: the plain route, or any route on the CPU),
-the model's ``trunk``, ``temporal`` and ``heads`` (models/tdeed.py),
-``loss``, ``backward`` and ``optimizer``; the predict step's ``forward``.
-They launch nothing and change no number; ``torch.export`` leaves them
-out of the serving programs (tests/test_torch_export.py).
+a ``torch.profiler`` trace: ``draw`` (when the step draws its own random
+values) and ``zero_grad`` on the host alone, ``crop``, ``mixup``, ``K1``
+(``augment_plain`` where the plain chain runs: the plain route, or any
+route on the CPU), the model's ``trunk``, ``temporal`` and ``heads``,
+``loss``, ``backward`` with the model's ``backward.heads``,
+``backward.temporal`` and ``backward.trunk`` inside it (models/tdeed.py;
+opened on the thread that runs the backward), and ``optimizer``; the
+predict step's ``forward``. They launch nothing and change no number;
+``torch.export`` leaves them out of the serving programs
+(tests/test_torch_export.py). Each training step also leaves a host record
+in ``utils.profiling.STEPS``: a span a region, with its thread's CPU time,
+and the step's host CPU.
 """
 
 from __future__ import annotations
@@ -74,6 +80,7 @@ from tdeed_tpu_torch.train.losses import (
     weighted_ce_hard,
     weighted_ce_soft,
 )
+from tdeed_tpu_torch.utils import profiling
 from tdeed_tpu_torch.utils.profiling import annotate
 
 
@@ -255,14 +262,20 @@ class TrainStep:
         Returns {'loss': the micro-batches' mean loss, a detached fp32
         scalar on the model's device}; over W ranks ``batch`` is the rank's
         rows and the loss is the global batch's."""
+        with profiling.STEPS.record():
+            return self._step(batch, draws)
+
+    def _step(self, batch, draws):
         dev = _device_of(self.model)
         b = self._micro_size(batch)
         if draws is None:
-            draws = self.draw(batch)
+            with annotate("draw"):
+                draws = self.draw(batch)
         if len(draws) != self.acc_grad_iter:
             raise ValueError(f"{len(draws)} draws for {self.acc_grad_iter} micro-batches")
         self.model.train()
-        self.optimizer.zero_grad(set_to_none=True)
+        with annotate("zero_grad"):
+            self.optimizer.zero_grad(set_to_none=True)
         total = None
         for i, d in enumerate(draws):
             micro = {k: v[i * b:(i + 1) * b] for k, v in batch.items()}

@@ -4,9 +4,15 @@ traces and per-step wall-clock timers.
 ``trace(logdir, device)`` wraps a region in a ``torch.profiler`` capture
 and writes a Chrome trace (Perfetto, chrome://tracing) under ``logdir``;
 ``annotate`` names a region inside it, and ``device_breakdown`` reduces
-a trace to time by op and by region and the busy and idle share (the
+a trace to time by op and by region and the device's busy time (the
 counterpart of tools/profile_trace.py's ``parse_trace`` and
-tools/trace_attrib.py); ``StepTimer`` times steps on the host clock
+tools/trace_attrib.py). ``STEPS`` keeps the host record of the last 256
+training steps: while a step runs, each ``annotate`` region and each
+backward segment (``BackwardSegments``, the model's ``backward.heads``,
+``backward.temporal`` and ``backward.trunk``) is a span of it with its
+thread's CPU time, and the record sums the step's host CPU; it is always
+on, kept in memory, and written out only on request (``record_json``).
+``StepTimer`` times steps on the host clock
 (synchronizing the card around each) with jitter stats; ``time_fn`` times
 a call on the card with CUDA events; ``card`` names the card; ``bound``
 is the card's least time for a given work.
@@ -18,13 +24,16 @@ kernels are built once per source into build/kernels/ (kernels/build.py).
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import os
 import statistics
 import subprocess
+import threading
 import time
 from collections import defaultdict
-from typing import Dict, List, Optional, Sequence, Tuple
+from dataclasses import dataclass, field
+from typing import Deque, Dict, List, Optional, Sequence, Tuple
 
 import torch
 from torch.autograd import DeviceType
@@ -76,8 +85,212 @@ def trace(logdir: Optional[str], device="cuda", warmup: int = 0):
 
 
 def annotate(name: str):
-    """Named region inside a trace."""
-    return torch.profiler.record_function(name)
+    """Named region inside a trace. While a training step's record is open
+    (``STEPS``) the region also adds a span to it."""
+    rec = STEPS.open
+    if rec is None:
+        return torch.profiler.record_function(name)
+    return _Region(rec, name)
+
+
+# --- the host record of each training step ---------------------------------
+
+RING_STEPS = 256
+
+
+@dataclass(slots=True)
+class Span:
+    """One region of a training step on the host: its ``name``; ``parent``,
+    the index of the span it opened inside (the innermost open on its own
+    thread, else on the step's thread) or None; ``thread``, its thread's
+    ``threading.get_ident()``; ``start_ns`` and ``end_ns`` on the Unix clock
+    (``time.time_ns``), the profiler's: a trace's events are microseconds
+    after ``kineto_results.trace_start_ns()``; ``cpu_ns``, the CPU time its
+    thread used over it."""
+
+    name: str
+    parent: Optional[int]
+    thread: int
+    start_ns: int
+    end_ns: int = 0
+    cpu_ns: int = 0
+    cpu0_ns: int = field(default=0, repr=False)  # the thread's CPU clock at the start
+
+
+@dataclass
+class StepRecord:
+    """The host record of one training step (``TrainStep.__call__``): its
+    spans in the order they opened; ``thread``, the step's thread;
+    ``main_cpu_ns``, that thread's CPU over the step; ``worker_cpu_ns``,
+    the CPU of other threads over their outermost spans (the autograd
+    engine's worker over the backward segments on the card); ``profiled``,
+    whether a ``torch.profiler`` session recorded regions at the step's
+    start or end (the warm-up steps of a scheduled session record none and
+    read False)."""
+
+    thread: int
+    start_ns: int
+    profiled: bool
+    spans: List[Span] = field(default_factory=list)
+    end_ns: int = 0
+    main_cpu_ns: int = 0
+    worker_cpu_ns: int = 0
+    _stacks: Dict[int, List[int]] = field(default_factory=dict, repr=False)
+
+    @property
+    def host_cpu_ns(self) -> int:
+        return self.main_cpu_ns + self.worker_cpu_ns
+
+    def open_span(self, name: str) -> int:
+        thread = threading.get_ident()
+        stack = self._stacks.get(thread)
+        if stack is None:
+            stack = self._stacks[thread] = []
+        outer = stack or self._stacks.get(self.thread)
+        i = len(self.spans)
+        self.spans.append(Span(name, outer[-1] if outer else None, thread, time.time_ns(),
+                               cpu0_ns=time.thread_time_ns()))
+        stack.append(i)
+        return i
+
+    def close_span(self, i: int) -> None:
+        """Close span ``i``, from any thread (its CPU is its own thread's)."""
+        span = self.spans[i]
+        if threading.get_ident() == span.thread:
+            cpu = time.thread_time_ns()
+        else:
+            cpu = time.clock_gettime_ns(time.pthread_getcpuclockid(span.thread))
+        span.cpu_ns = cpu - span.cpu0_ns
+        span.end_ns = time.time_ns()
+        stack = self._stacks[span.thread]
+        stack.remove(i)
+        if span.thread != self.thread and not stack:
+            self.worker_cpu_ns += span.cpu_ns
+
+
+class _Region:
+    """``annotate``'s region while a step record is open: the profiler
+    region and, inside it, a span of the record."""
+
+    __slots__ = ("rec", "name", "rf", "i")
+
+    def __init__(self, rec: StepRecord, name: str):
+        self.rec, self.name = rec, name
+
+    def __enter__(self):
+        self.rf = torch.profiler.record_function(self.name)
+        self.rf.__enter__()
+        self.i = self.rec.open_span(self.name)
+        return self
+
+    def __exit__(self, *exc):
+        self.rec.close_span(self.i)
+        self.rf.__exit__(*exc)
+
+
+class StepRecorder:
+    """The host records of training steps: ``record()`` around a step opens
+    a StepRecord that ``annotate`` regions and backward segments add spans
+    to; ``records`` keeps the last ``maxlen`` steps, in memory (a step that
+    raises leaves none)."""
+
+    def __init__(self, maxlen: int = RING_STEPS):
+        self.records: Deque[StepRecord] = collections.deque(maxlen=maxlen)
+        self.open: Optional[StepRecord] = None
+
+    @contextlib.contextmanager
+    def record(self):
+        profiled = torch.autograd.profiler._is_profiler_enabled
+        rec = StepRecord(threading.get_ident(), time.time_ns(), profiled)
+        cpu = time.thread_time_ns()
+        self.open = rec
+        try:
+            yield rec
+        finally:
+            self.open = None
+        rec.main_cpu_ns = time.thread_time_ns() - cpu
+        rec.end_ns = time.time_ns()
+        rec.profiled = profiled or torch.autograd.profiler._is_profiler_enabled
+        self.records.append(rec)
+
+
+# every training step's record (train/step.py), read by the benchmark's
+# train_step.host_cpu_ms and by tools/profile_step.py
+STEPS = StepRecorder()
+
+
+class BackwardSegments:
+    """Profiler regions over one backward pass, one a model layer:
+    ``mark(t, name)`` on a forward tensor opens region ``name`` when the
+    gradient reaches it, on the thread that runs the backward (the
+    autograd engine's worker on the card). Each region closes the one
+    before it; the last closes when the backward ends (an engine final
+    callback). The profiler region opens only while a ``torch.profiler``
+    session records: it would record nothing else, and entering and leaving
+    one costs microseconds of host time. While a step record is open each
+    region is also a span of it.
+
+    The mark is a tensor hook that returns None: it changes no gradient and
+    adds no node to the graph. With grad disabled, or on a tensor that
+    needs none, it marks nothing. A region opens once a pass: a second
+    marked output of one layer finds it open."""
+
+    def __init__(self):
+        self._seen = set()
+        self._open = None  # (record_function, StepRecord or None, span index)
+
+    def mark(self, t: torch.Tensor, name: str) -> None:
+        if torch.is_grad_enabled() and t.requires_grad:
+            t.register_hook(lambda grad: self._enter(name))
+
+    def _enter(self, name: str) -> None:
+        if name in self._seen:
+            return
+        if not self._seen:
+            torch.autograd.Variable._execution_engine.queue_callback(self._close)
+        self._seen.add(name)
+        self._close()
+        rf = None
+        if torch.autograd.profiler._is_profiler_enabled:
+            rf = torch.profiler.record_function(name)
+            rf.__enter__()
+        rec = STEPS.open
+        self._open = (rf, rec, None if rec is None else rec.open_span(name))
+
+    def _close(self) -> None:
+        if self._open is None:
+            return
+        rf, rec, i = self._open
+        self._open = None
+        if rec is not None:
+            rec.close_span(i)
+        if rf is not None:
+            rf.__exit__(None, None, None)
+
+
+def record_json(rec: StepRecord, t0_ns: int) -> Dict[str, object]:
+    """A step record as JSON, times in microseconds after ``t0_ns`` (a
+    trace's ``kineto_results.trace_start_ns()``: the clock of its events)
+    and CPU in ms."""
+    return {
+        "start_us": (rec.start_ns - t0_ns) / 1e3, "end_us": (rec.end_ns - t0_ns) / 1e3,
+        "profiled": rec.profiled, "host_cpu_ms": rec.host_cpu_ns / 1e6,
+        "main_cpu_ms": rec.main_cpu_ns / 1e6, "worker_cpu_ms": rec.worker_cpu_ns / 1e6,
+        "thread": rec.thread,
+        "spans": [{"name": s.name, "parent": s.parent, "thread": s.thread,
+                   "start_us": (s.start_ns - t0_ns) / 1e3, "end_us": (s.end_ns - t0_ns) / 1e3,
+                   "cpu_ms": s.cpu_ns / 1e6} for s in rec.spans],
+    }
+
+
+def host_cpu_by_region(records: Sequence[StepRecord]) -> Dict[str, float]:
+    """Host CPU ms of ``records``' spans by region name (a nested span
+    counts in both, as ``device_breakdown``'s device time does)."""
+    out: Dict[str, float] = defaultdict(float)
+    for rec in records:
+        for s in rec.spans:
+            out[s.name] += s.cpu_ns / 1e6
+    return dict(sorted(out.items()))
 
 
 class StepTimer:
@@ -224,8 +437,8 @@ def device_breakdown(prof, device="cuda", top: int = 20,
                         under "unlinked");
       ``wall_ms``       the window, from its first event's start to its
                         last event's end;
-      ``busy_ms``, ``busy_share``, ``idle_share``  the union of the ops'
-                        intervals, and its share of the window and the rest;
+      ``busy_ms``       the union of the ops' intervals (no share of the
+                        window: the profiler's own host work stretches it);
       ``launches``, ``dropped``  on the card, the kernel launch calls in
                         the window and those of them with no device record.
 
@@ -235,7 +448,7 @@ def device_breakdown(prof, device="cuda", top: int = 20,
     autograd engine's). A window with no device time raises: the card's
     trace is then missing, not idle. So does a window that lost a launched
     kernel's device record (``dropped`` > 0): its busy time would be short
-    and its idle share long (trace with ``warmup``). On the CPU the ops
+    (trace with ``warmup``). On the CPU the ops
     are the host's PyTorch ops and their self time, the plain versions'
     work, ``platform`` says "cpu" and ``launches``/``dropped`` are None."""
     events = [e for e in prof.events() if not e.is_async]
@@ -298,8 +511,6 @@ def device_breakdown(prof, device="cuda", top: int = 20,
         "ms_by_region": {k: v / 1e3 for k, v in sorted(by_region.items())},
         "wall_ms": wall / 1e3,
         "busy_ms": busy / 1e3,
-        "busy_share": busy / wall if wall > 0 else 0.0,
-        "idle_share": 1.0 - busy / wall if wall > 0 else 1.0,
         "launches": launches,
         "dropped": dropped,
     }

@@ -13,10 +13,12 @@ bench_input,profile_step,profile_infer}.py), what they share
   nested in their ``main``, copied here);
 - bench_input's pipeline yields the JAX tool's batches, frame for frame;
 - ``device_breakdown`` of a traced tiny step finds every region of the
-  step, with shares in [0, 1]; on a card window (events made here) it
-  links each kernel to its launch's region, and it refuses a card trace
-  with no device time or with a launch whose kernel record is missing;
-  the regions change no number of the step;
+  step, with its busy time inside the window; on a card window (events
+  made here) it links each kernel to its launch's region, and it refuses
+  a card trace with no device time or with a launch whose kernel record
+  is missing; the regions, the backward segments' hooks and the step
+  record change no number of the step; profile_step writes the traced
+  steps' records and their host CPU by region;
 - the ``plain`` variant launches K1 zero times, the default once a
   micro-batch.
 """
@@ -47,13 +49,16 @@ from tdeed_tpu_torch.train.schedule import make_optimizer
 from tdeed_tpu_torch.train.step import make_predict_step, make_train_step
 from tdeed_tpu_torch.utils import profiling
 
-STEP_REGIONS = {"crop", "mixup", "K1", "trunk", "temporal", "heads", "loss", "backward",
+STEP_REGIONS = {"draw", "zero_grad", "crop", "mixup", "K1", "trunk", "temporal", "heads", "loss",
+                "backward", "backward.heads", "backward.temporal", "backward.trunk",
                 "optimizer"}
+# regions that launch no work: no device (or, on the CPU, op) time
+EMPTY_REGIONS = {"crop", "zero_grad"}
 
 # tool -> (argv of a tiny CPU run, keys its JSON must hold)
 TINY = {
     "bench": (bench, ["--snb_warmup", "0", "--snb_steps", "1"],
-              {"metric", "value", "vs_baseline", "train_frames_per_sec", "train_step_ms",
+              {"metric", "value", "train_frames_per_sec", "train_step_ms",
                "train_peak_gib", "train_k1_launches_per_step", "predict_frames_per_sec_plain",
                "predict_frames_per_sec_hflip", "predict_peak_gib",
                "snb_challenge_train_frames_per_sec_acc2", "snb_peak_gib",
@@ -114,6 +119,8 @@ def test_cpu_run_prints_one_json_line_with_finite_numbers(tmp_path, capsys, name
     assert numbers and all(math.isfinite(v) for v in numbers)
     peaks = [v for k, v in _flat(out) if k.endswith("peak_gib")]
     assert all(v is None for v in peaks) and (bool(peaks) or name == "profile_step")
+    if name == "bench":  # no assumed baseline rate
+        assert "vs_baseline" not in out
     if name == "profile_step":  # the trace of 3 steps, reduced
         tr = out["trace"]
         assert (tmp_path / "trace" / "trace.json").exists()
@@ -121,8 +128,18 @@ def test_cpu_run_prints_one_json_line_with_finite_numbers(tmp_path, capsys, name
         regions = STEP_REGIONS - {"K1"} | {"augment_plain"}
         assert regions <= set(tr["ms_by_region"]) and "K1" not in tr["ms_by_region"]
         assert tr["steps"] == 3
-        assert 0 <= tr["busy_share"] <= 1
-        assert abs(tr["busy_share"] + tr["idle_share"] - 1) < 1e-12
+        # no share of the traced window: the profiler's host work stretches it
+        assert 0 < tr["busy_ms"] <= tr["wall_ms"] and not {"busy_share", "idle_share"} & set(tr)
+        # the host CPU by region beside the device time, from the 3 steps' records
+        assert regions <= set(tr["host_cpu_ms_by_region"])
+        assert tr["host_cpu_ms_per_step"] >= tr["host_cpu_ms_by_region"]["backward"] / 3 > 0
+        spans = json.loads((tmp_path / "trace" / "spans.json").read_text())
+        assert spans["trace_start_ns"] > 0 and len(spans["steps"]) == 3
+        for rec in spans["steps"]:
+            assert rec["profiled"] and 0 <= rec["start_us"] < rec["end_us"]
+            assert regions <= {sp["name"] for sp in rec["spans"]}
+            assert all(rec["start_us"] <= sp["start_us"] <= sp["end_us"] <= rec["end_us"]
+                       for sp in rec["spans"])
         # the plain chain on the CPU: no kernel, no launch
         assert tr["k1_kernel"] is None and tr["k1_launches"] == 0
 
@@ -253,8 +270,9 @@ def _tiny_trainer(pallas_augment=None, acc=1):
 
 def test_device_breakdown_finds_every_region_of_a_step():
     """A traced plain-route step and a predict call: every region, with
-    time in each but the crop's (a view), the top ops, shares in [0, 1].
-    (The K1 route's regions: the profile_step case above.)"""
+    time in each but the crop's (a view) and zero_grad's (set to None), the
+    top ops, the busy time inside the window. (The K1 route's regions: the
+    profile_step case above.)"""
     model, step, batch = _tiny_trainer(pallas_augment=False)
     predict = make_predict_step(model, crop_dim=32, radi_displacement=2)
     step(batch)
@@ -265,10 +283,10 @@ def test_device_breakdown_finds_every_region_of_a_step():
     assert out["platform"] == "cpu"
     regions = STEP_REGIONS - {"K1"} | {"augment_plain", "forward"}
     assert regions <= set(out["ms_by_region"]) and "K1" not in out["ms_by_region"]
-    assert all(out["ms_by_region"][r] > 0 for r in regions - {"crop"})
+    assert all(out["ms_by_region"][r] > 0 for r in regions - EMPTY_REGIONS)
     assert len(out["ms_by_op"]) == 5 and all(v["ms"] > 0 for v in out["ms_by_op"].values())
     assert 0 < out["busy_ms"] <= out["wall_ms"]
-    assert 0 <= out["busy_share"] <= 1 and 0 <= out["idle_share"] <= 1
+    assert not {"busy_share", "idle_share"} & set(out)
 
 
 def test_device_breakdown_refuses_a_card_trace_without_device_time():
@@ -318,18 +336,26 @@ def test_device_breakdown_refuses_a_window_that_lost_a_kernel_record():
         profiling.device_breakdown(_card_window(lose_mul=True), "cuda")
 
 
-def test_regions_change_no_number_of_the_step(monkeypatch):
-    """The same step with every annotate a no-op gives the same loss and
+@pytest.mark.parametrize("off", ["annotate", "segments_and_record"])
+def test_regions_change_no_number_of_the_step(monkeypatch, off):
+    """The same step with every annotate a no-op, or with the backward
+    segments' hooks and the step record no-ops, gives the same loss and
     weights, bit for bit."""
     model, step, batch = _tiny_trainer()
     loss = step(batch)["loss"]
-    monkeypatch.setattr(step_module, "annotate", lambda name: contextlib.nullcontext())
-    monkeypatch.setattr("tdeed_tpu_torch.models.tdeed.annotate",
-                        lambda name: contextlib.nullcontext())
+    if off == "annotate":
+        monkeypatch.setattr(step_module, "annotate", lambda name: contextlib.nullcontext())
+        monkeypatch.setattr("tdeed_tpu_torch.models.tdeed.annotate",
+                            lambda name: contextlib.nullcontext())
+    else:
+        monkeypatch.setattr(profiling.BackwardSegments, "mark", lambda self, t, name: None)
+        monkeypatch.setattr(profiling.STEPS, "record", contextlib.nullcontext)
+    last = profiling.STEPS.records[-1]
     model2, step2, _ = _tiny_trainer()
     assert torch.equal(step2(batch)["loss"], loss)
     for a, b in zip(model.state_dict().values(), model2.state_dict().values()):
         assert torch.equal(a, b)
+    assert (profiling.STEPS.records[-1] is last) == (off != "annotate")
 
 
 @pytest.mark.parametrize("variant,acc", [("k1", 2), ("plain", 2), ("plain", 1)])

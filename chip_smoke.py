@@ -6,8 +6,9 @@
 Phases, each fatal on failure:
   1. device: a CUDA card is required (no CPU path); prints the card's name
      and power limit and the TF32 switches;
-  2. build: compiles the photometric kernel (csrc/photometric.cu) and the
-     probe kernels (csrc/probe.cu) with nvcc, one process each, together;
+  2. build: compiles the photometric kernel (csrc/photometric.cu), the
+     probe kernels (csrc/probe.cu) and the BatchNorm kernels
+     (csrc/batchnorm.cu) with nvcc, one process each, together;
   3. kernel: the photometric kernel against its plain PyTorch version on
      the card, all 64 gate combinations (hue, saturation, brightness,
      contrast, blur, flip), uint8 and bf16 input, 224x224, 448x796 and
@@ -16,6 +17,13 @@ Phases, each fatal on failure:
      own second call (the same bits), and both timed there; the kernel also
      with every gate on in every clip, and at SoccerNet Ball's full frames
      (8, 100, 448, 796, 3) bf16;
+  3a. bn: the four training BatchNorm kernels (kernels/batchnorm.py) at
+     each benchmark cell's largest BatchNorm, the stem, bf16 with ReLU,
+     against their plain twins (the moments and sums against float64, y
+     bit for bit and dx within 1 bf16 ulp given the kernel's statistics),
+     each timed beside its bound, its twin and the eager autograd chain;
+     their launches are counted on each later phase's paths, and every
+     path that trains must launch them;
   3b. probe: the probe tool (tdeed_tpu_torch.tools.profile_probe) on the
      card at its full shape (112, 112, 24, 800), which must launch each of
      the three probe kernels; then each kernel against its plain version at
@@ -125,7 +133,9 @@ Phases, each fatal on failure:
      stride-2 block through FusedShiftBlock, a GSF stride-1 block's conv1
      through FusedConvBNReLU) at FineDiving_small's widths, 2 clips of 100
      frames, against the port's plain modules on the same weights and
-     inputs, fp32 and bf16: forward and running statistics bit for bit
+     inputs (their BatchNorms on the eager op sequence the units
+     reproduce, not on the kernels), fp32 and bf16: forward and running
+     statistics bit for bit
      (else logged and held to the gradients' bound), gradients within
      FUSED_FP32_LEAF (fp32) or the JAX package's isolated-flip criterion
      (bf16, FUSED_BF16_*), each unit's forward + backward timed; 12b: 5
@@ -164,6 +174,7 @@ repository, it exits non-zero and prints neither.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -214,7 +225,7 @@ PHASE9_ARCHS = ("rny002_gsm", "rny002", "rny008_gsm")  # FineDiving_small at ful
 PHASE9_STEPS = 3  # train steps of each phase-9 trunk, and of each 9b setting
 EXPORT_CLIPS = 4  # the exported programs' batch (phase 9c)
 EXPORT_CALLS = 10
-KERNEL_SOURCES = ("photometric", "probe")
+KERNEL_SOURCES = ("photometric", "probe", "batchnorm")
 # phase 11: the host data tools over the committed JPEG fixtures
 DECODE_BATCH = 100  # frames of each timed decode_batch
 DECODE_THREADS = (1, 4, 8)
@@ -462,6 +473,119 @@ def kernel_phase(torch):
         "snb_bound_ms": snb_bound,
         "snb_plan": snb_plan,
     }
+
+
+# the largest trunk BatchNorm of each benchmark cell, the stem's (frames,
+# 32, H/2, W/2) bf16: FineDiving's 8 x 100 crops of 224^2, SoccerNet Ball's
+# 4 x 100 full 448 x 796 frames
+BN_STEMS = (("FineDiving_small", (800, 32, 112, 112)),
+            ("SoccerNetBall_challenge1", (400, 32, 224, 398)))
+BN_BYTES = {"stats": 2, "apply": 4, "grad_sums": 4, "grad_apply": 6}  # a bf16 element
+
+
+def bn_launches():
+    """The four BatchNorm kernels' launch counters, by kernel."""
+    from tdeed_tpu_torch.kernels import batchnorm as bn
+
+    return {k: getattr(bn, f"bn_{k}").launches for k in BN_BYTES}
+
+
+def bn_kernel_phase(torch):
+    """The BatchNorm kernels (csrc/batchnorm.cu) at each cell's stem, with
+    ReLU, against their plain twins: the moments and the gradient's sums
+    against a float64 sum (1e-5 of the terms' magnitudes), y bit for bit
+    and dx within 1 bf16 ulp given the kernel's statistics; then each
+    kernel timed beside its bound (its bf16 bytes once each way at 3.35
+    TB/s), its twin, and the eager autograd chain the kernels replaced."""
+    from tdeed_tpu_torch.kernels import batchnorm as bn
+    from tdeed_tpu_torch.models.common import batch_stats, bn_fold
+    from tdeed_tpu_torch.utils.profiling import PEAK_BYTES_PER_S
+
+    dev = torch.device("cuda")
+    out = {"name": "batchnorm", "route": "cuda", "source": "tdeed_tpu_torch/csrc/batchnorm.cu",
+           "replaces": None, "library_ms": None, "max_abs_err": 0.0, "cells": {}}
+    for cell, (n, c, h, w) in BN_STEMS:
+        gen = torch.Generator(device=dev).manual_seed(SEED + c)
+        x = (torch.randn((n, h, w, c), generator=gen, device=dev) * 1.5 + 0.3).to(
+            torch.bfloat16).permute(0, 3, 1, 2)
+        gy = torch.randn((n, h, w, c), generator=gen, device=dev).to(
+            torch.bfloat16).permute(0, 3, 1, 2)
+        weight = torch.rand(c, generator=gen, device=dev) + 0.5
+        bias = 0.5 * torch.randn(c, generator=gen, device=dev)
+        args = (weight, bias, 1e-5, True)
+        rows = x.numel() // c
+
+        moments = bn.bn_stats(x)
+        y, stats = bn.bn_apply(x, moments, *args)
+        sums = bn.bn_grad_sums(x, gy, stats, *args)
+        dx, dw, db = bn.bn_grad_apply(x, gy, stats, *args, sums, sums, rows)
+        torch.cuda.synchronize()
+        dims = [0, 2, 3]
+        sum_err = 0.0
+        for what, got, terms in (("moments", moments, (x, x.double().square())),
+                                 ("sums", sums, None)):
+            if terms is None:
+                dz = bn._masked(x, gy, stats, *args)[0].double()
+                terms = (dz, dz * x.double())
+            want = torch.stack([t.double().mean(dims) if what == "moments" else
+                                t.double().sum(dims) for t in terms])
+            mag = torch.stack([t.double().abs().mean(dims) if what == "moments" else
+                               t.double().abs().sum(dims) for t in terms])
+            rel = float(((got.double() - want).abs() / mag).max())
+            sum_err = max(sum_err, rel)
+            del want, mag, terms
+            if rel > 1e-5:
+                fail(f"bn {cell}: the kernel's {what} are {rel:.2e} off a float64 sum")
+        same_y = torch.equal(y, bn.bn_apply_reference(x, moments, *args)[0])
+        if not same_y:
+            fail(f"bn {cell}: the kernel's y differs from its twin's given its statistics")
+        dx_t = bn.bn_grad_apply_reference(x, gy, stats, *args, sums, sums, rows)[0]
+        err = _check_close(torch, dx, dx_t, f"bn {cell} stem {(n, c, h, w)} dx")
+        out["max_abs_err"] = max(out["max_abs_err"], err)
+        del dx_t, dx, y
+
+        kernels = {
+            "stats": lambda: bn.bn_stats(x),
+            "apply": lambda: bn.bn_apply(x, moments, *args),
+            "grad_sums": lambda: bn.bn_grad_sums(x, gy, stats, *args),
+            "grad_apply": lambda: bn.bn_grad_apply(x, gy, stats, *args, sums, sums, rows),
+        }
+        twins = {
+            "stats": lambda: bn.bn_stats_reference(x),
+            "apply": lambda: bn.bn_apply_reference(x, moments, *args),
+            "grad_sums": lambda: bn.bn_grad_sums_reference(x, gy, stats, *args),
+            "grad_apply": lambda: bn.bn_grad_apply_reference(x, gy, stats, *args, sums, sums,
+                                                             rows),
+        }
+
+        def chain():
+            xr = x.detach().requires_grad_(True)
+            wr, br = weight.detach().requires_grad_(True), bias.detach().requires_grad_(True)
+            mean, var = batch_stats(xr)
+            a, b = bn_fold(mean, var, wr, br, 1e-5, xr)
+            torch.relu(xr * a + b).backward(gy)
+
+        row = {"shape": [n, c, h, w], "sum_rel_err": sum_err, "kernels": {}}
+        for k, fn in kernels.items():
+            ms = _time_ms(torch, fn, 20)
+            bound_ms = BN_BYTES[k] * x.numel() / PEAK_BYTES_PER_S * 1e3
+            twin_ms = _time_ms(torch, twins[k], 3)
+            row["kernels"][k] = {"ms": ms, "bound_ms": bound_ms, "twin_ms": twin_ms}
+        row["ms"] = sum(v["ms"] for v in row["kernels"].values())
+        row["bound_ms"] = 16 * x.numel() / PEAK_BYTES_PER_S * 1e3
+        row["twin_ms"] = sum(v["twin_ms"] for v in row["kernels"].values())
+        row["eager_chain_ms"] = _time_ms(torch, chain, 3)
+        out["cells"][cell] = row
+        log(f"[bn] {cell} stem {(n, c, h, w)} bf16 + ReLU: sums within {sum_err:.2e} of "
+            f"float64, y bit for bit; " + "; ".join(
+                f"{k} {v['ms']:.3f} ms ({v['bound_ms'] / v['ms']:.0%} of {v['bound_ms']:.3f}), "
+                f"twin {v['twin_ms']:.3f}" for k, v in row["kernels"].items())
+            + f"; all four {row['ms']:.3f} ms against {row['bound_ms']:.3f} ms of bound "
+            f"({row['bound_ms'] / row['ms']:.0%}), the twins {row['twin_ms']:.3f}, the eager "
+            f"autograd chain {row['eager_chain_ms']:.3f}")
+        del x, gy
+        torch.cuda.empty_cache()
+    return out
 
 
 def _k1_plan(plan):
@@ -2485,15 +2609,45 @@ def _run_unit(torch, fn, mods, x, w=None):
     return out.detach(), m.state_dict(), grads, w
 
 
+@contextlib.contextmanager
+def _eager_bn(torch):
+    """Within, SplitBatchNorm trains through the eager op sequence the
+    fused units reproduce (``batch_stats``, ``record``, ``bn_fold``,
+    ``x * a + b``, ReLU, differentiated by autograd), not through its
+    kernels, whose sums run in another order."""
+    from tdeed_tpu_torch.models import common
+
+    def forward(self, x):
+        if not self.training:
+            return kernel_forward(self, x)
+        mean, var = common.batch_stats(x, self.process_group)
+        self.record(mean, var)
+        a, b = common.bn_fold(mean, var, self.weight, self.bias, self.eps, x)
+        y = x * a + b
+        return torch.relu(y) if self.relu else y
+
+    kernel_forward = common.SplitBatchNorm.forward
+    common.SplitBatchNorm.forward = forward
+    try:
+        yield
+    finally:
+        common.SplitBatchNorm.forward = kernel_forward
+
+
 def fused_agreement_phase(torch, smi):
     """Phase 12a: each fused unit against the port's plain modules on the
     card, same weights (BN parameters ramped by +0.05, as the CPU tests)
-    and inputs: fp32 and bf16 (fp32 parameters, as in the model). The
-    forward and the statistics bit for bit (else logged and held to the
-    gradients' bound); the gradients of every parameter and of the input
-    within FUSED_FP32_LEAF (fp32) or the FUSED_BF16_* criterion (bf16),
-    or within FUSED_FLOOR_RATIO times the plain modules' own rerun. Then
-    each unit's forward + backward timed in bf16, fused and plain."""
+    and inputs: fp32 and bf16 (fp32 parameters, as in the model), the
+    BatchNorms on the eager op sequence the units reproduce (``_eager_bn``,
+    the GSF gates' inside a fused shift unit too: in fp32 the kernels'
+    other summation order moves these ill-conditioned gradients by 1e-4 to
+    1e-3 of their largest entries, as far as either path lies from
+    float64). The forward and the statistics bit for bit (else logged and
+    held to the gradients' bound); the gradients of every parameter and of
+    the input within FUSED_FP32_LEAF (fp32) or the FUSED_BF16_* criterion
+    (bf16), or within FUSED_FLOOR_RATIO times the plain modules' own
+    rerun. Then each unit's forward + backward timed in bf16, fused and
+    plain (on the kernels)."""
     import copy
 
     gen = torch.Generator().manual_seed(SEED + 12)
@@ -2508,9 +2662,10 @@ def fused_agreement_phase(torch, smi):
         times = {}
         for dtype in (torch.float32, torch.bfloat16):
             x = x32.to(dtype)
-            po, ps, pg, w = _run_unit(torch, plain, mods, x)
-            rerun = _run_unit(torch, plain, mods, x, w)[2]
-            fo, fs, fg, _ = _run_unit(torch, fused, mods, x, w)
+            with _eager_bn(torch):
+                po, ps, pg, w = _run_unit(torch, plain, mods, x)
+                rerun = _run_unit(torch, plain, mods, x, w)[2]
+                fo, fs, fg, _ = _run_unit(torch, fused, mods, x, w)
             same_out = torch.equal(fo, po)
             same_stats = all(torch.equal(fs[k], ps[k]) for k in ps)
             leaves = dict(pg, output=po) if not same_out else pg
@@ -2915,6 +3070,7 @@ def main() -> int:
 
     build_phase()
     k1 = kernel_phase(torch)
+    bn = bn_kernel_phase(torch)
     probes = probe_phase(torch)
     torch.cuda.empty_cache()
     agreement_phase(torch)
@@ -2925,6 +3081,7 @@ def main() -> int:
         f"crop {cfg.crop_dim}, {sum(p.numel() for p in model.parameters())} params, "
         f"{cfg.dtype} compute")
     photometric.launches = 0
+    bn_marks = [("start", bn_launches())]
     serve_phase(torch, cfg, model)
     phase5b = spot_phase(torch, cfg, model, smi)
     train_phase(torch, cfg, model, step)
@@ -2934,11 +3091,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase7 = cli_phase(torch, smi)
     flagship_launches = photometric.launches
+    bn_marks.append(("phases 5-7 (FineDiving_small)", bn_launches()))
     if flagship_launches < TRAIN_STEPS + 2 * ACC_STEPS:
         fail(f"the training steps launched the photometric kernel {flagship_launches} times")
     torch.cuda.empty_cache()
     snb = snb_phase(torch, smi)  # counts its own launches from 0
     snb_launches = snb.pop("launches")
+    bn_marks.append(("phase 8 (SoccerNetBall_challenge2)", bn_launches()))
     torch.cuda.empty_cache()
     agreement_phase(torch, feature_arch="rny002_gsm")
     photometric.launches = 0
@@ -2948,6 +3107,8 @@ def main() -> int:
     if phase9_launches != PHASE9_STEPS * (len(PHASE9_ARCHS) + 2):  # 9a, 9b off and on
         fail(f"phase 9 launched the photometric kernel {phase9_launches} times")
     export_phase(torch, smi)
+    bn_marks.append(("phase 9 (the agreement on rny002_gsm, GSM and plain trunks, "
+                     "checkpoint_backbone, export)", bn_launches()))
     torch.cuda.empty_cache()
     photometric.launches = 0
     rank_launches = dp_steps_phase(torch, smi)  # counted in the ranks' own processes
@@ -2959,12 +3120,16 @@ def main() -> int:
     if phase10_launches != DP_RANKS * (DP_STEPS + 1) + (DP_STEPS + 2) + 3 + 2:
         fail(f"phase 10 launched the photometric kernel {phase10_launches} times")
     dp_serve_phase(torch, smi)
+    bn_marks.append(("phase 10 (this process: the one-process step, cli.train "
+                     "--distributed; not the spawned ranks)", bn_launches()))
     torch.cuda.empty_cache()
     photometric.launches = 0
     phase11_launches = host_tools_phase(torch, smi, cfg, flagship, phase7, phase5b)
     if phase11_launches != photometric.launches:
         fail(f"phase 11 counted {phase11_launches} photometric launches of "
              f"{photometric.launches}")
+    bn_marks.append(("phase 11 (cli.train from JPEG frames, tools.overfit_check)",
+                     bn_launches()))
     torch.cuda.empty_cache()
     fused_agreement_phase(torch, smi)
     photometric.launches = 0
@@ -2974,12 +3139,22 @@ def main() -> int:
     if phase12_launches != photometric.launches:
         fail(f"phase 12 counted {phase12_launches} photometric launches of "
              f"{photometric.launches}")
+    bn_marks.append(("phase 12 (the fused units' agreement, flagship and SoccerNet Ball "
+                     "steps, cli.train)", bn_launches()))
     torch.cuda.empty_cache()
     photometric.launches = 0
     phase13_launches = measure_tools_phase(torch, smi, k1)
     if phase13_launches != photometric.launches:
         fail(f"phase 13 counted {phase13_launches} photometric launches of "
              f"{photometric.launches}")
+    bn_marks.append(("phase 13 (the measuring tools)", bn_launches()))
+    bn["launches_by_path"] = {
+        label: {k: now[k] - before[k] for k in now}
+        for (_, before), (label, now) in zip(bn_marks, bn_marks[1:])}
+    bn["launches"] = {k: bn_marks[-1][1][k] - bn_marks[0][1][k] for k in BN_BYTES}
+    if not all(v["stats"] > 0 for v in bn["launches_by_path"].values()):
+        fail(f"a training path launched no BatchNorm kernel: {bn['launches_by_path']}")
+    log(f"[bn] launches by path: {json.dumps(bn['launches_by_path'])}")
     k1["launches"] = (flagship_launches + snb_launches + phase9_launches + phase10_launches
                       + phase11_launches + phase12_launches + phase13_launches)
     k1["launches_by_path"] = {"phases 5-7 (FineDiving_small)": flagship_launches,
@@ -3001,7 +3176,7 @@ def main() -> int:
         "jax", "jaxlib", "flax", "optax", "tdeed_tpu", "tools"))
     if leaked:
         fail(f"JAX, the JAX package or the repo's JAX-side tools were imported: {leaked}")
-    kernels = [k1, *probes]
+    kernels = [k1, bn, *probes]
     for k in kernels:
         k["lib_ms"] = k["library_ms"]
     log(json.dumps({"kernels": kernels}))

@@ -27,8 +27,10 @@ The forward is the op sequence of models/regnet.py's ConvBN + YBlock and
 models/common.py's SplitBatchNorm: the same convs, the fp32 moments E[x]
 and E[x^2] and the fold into ``x * a + b`` in the compute dtype through
 SplitBatchNorm's own ``batch_stats`` and ``bn_fold`` (the JAX module's
-``_stats`` and ``_fold``), ReLU. It therefore gives the plain modules'
-bits.
+``_stats`` and ``_fold``), ReLU. It therefore gives that eager chain's
+bits: the plain modules' on the CPU; on the card the plain modules'
+BatchNorms run kernels (kernels/batchnorm.py) whose sums take another
+order.
 The batch statistics come back as non-differentiable outputs; the caller
 writes the running statistics (``SplitBatchNorm.record``).
 
@@ -52,6 +54,7 @@ import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 
+from tdeed_tpu_torch.kernels.batchnorm import _bn_bwd_coeffs
 from tdeed_tpu_torch.models.common import acc_dtype, batch_stats, bn_fold
 from tdeed_tpu_torch.parallel import mesh
 
@@ -133,26 +136,6 @@ def _front(x, p, groups: int, with_stem: bool, eps, group):
 # ---------------------------------------------------------------------------
 # Backward helpers
 # ---------------------------------------------------------------------------
-
-
-def _bn_bwd_coeffs(S0, S1, m, var, scale, n_rows, eps):
-    """From the two sums of BN's output cotangent dz, S0 = sum(dz) and
-    S1 = sum(dz * v) (fp32), everything SplitBatchNorm's training backward
-    needs:
-
-      dv = dz * a + cast(v * k1 + k0),  dscale, dbias.
-
-    dv is linear in v because var = E[v^2] - E[v]^2."""
-    r = torch.rsqrt(var + eps)
-    inv = scale * r
-    d_inv = S1 - m * S0
-    d_scale = d_inv * r
-    d_bias = S0
-    d_var = scale * d_inv * (-0.5) * r * r * r
-    d_mean = -inv * S0 - 2.0 * m * d_var
-    k1 = 2.0 * d_var / n_rows
-    k0 = d_mean / n_rows
-    return k0, k1, d_scale, d_bias
 
 
 def _bn_bwd(dz, v, m, var, scale, a, eps, group):

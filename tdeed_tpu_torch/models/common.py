@@ -17,6 +17,9 @@ import torch.distributed as dist
 import torch.nn as nn
 import torch.nn.functional as F
 
+from tdeed_tpu_torch.kernels.batchnorm import (
+    acc_dtype, batch_norm_train, bn_fold, update_running,
+)
 from tdeed_tpu_torch.parallel import mesh
 
 
@@ -56,11 +59,6 @@ class Linear(nn.Linear):
 
     def forward(self, x):
         return F.linear(x, self.weight.to(x.dtype), _cast(self.bias, x.dtype))
-
-
-def acc_dtype(x: torch.Tensor) -> torch.dtype:
-    """The dtype statistics accumulate in: fp32, or the input's if wider."""
-    return torch.promote_types(x.dtype, torch.float32)
 
 
 def gelu_exact(x):
@@ -117,7 +115,7 @@ class _BatchMoments(torch.autograd.Function):
 
 class SplitBatchNorm(nn.Module):
     """BatchNorm with fp32 statistics and a compute-dtype application
-    (tdeed_tpu/models/common.py:106-157).
+    (tdeed_tpu/models/common.py:106-157), then ReLU when ``relu``.
 
     Channels are dim 1. Training normalizes with the biased batch variance
     E[x^2] - E[x]^2 and folds the normalization into one ``x * a + b`` in
@@ -125,6 +123,12 @@ class SplitBatchNorm(nn.Module):
     the old value (torch's 0.1) and the *biased* variance, which is why
     plain nn.BatchNorm2d (unbiased running variance) is not used. Buffer
     names are torch's, so reference checkpoints load unchanged.
+
+    Training runs ``kernels.batchnorm.batch_norm_train``: four CUDA kernels
+    for a CUDA input, which must hold its channels innermost in memory
+    (channels_last), and their plain twin for a CPU input. Eval mode is the
+    stock ``x * a + b`` with the running statistics, which torch.export
+    traces.
 
     With a ``process_group`` of more than one rank (set by
     parallel.mesh.distribute) the training statistics are the global
@@ -134,11 +138,10 @@ class SplitBatchNorm(nn.Module):
     variance and runs in one precision.
     """
 
-    momentum = 0.9  # flax convention: weight of the old running value
-
-    def __init__(self, num_features: int, eps: float = 1e-5):
+    def __init__(self, num_features: int, eps: float = 1e-5, relu: bool = False):
         super().__init__()
         self.eps = eps
+        self.relu = relu
         # False while a checkpointed block recomputes its forward in the
         # backward pass (frozen_running_stats): the step already wrote them
         self.update_stats = True
@@ -153,25 +156,24 @@ class SplitBatchNorm(nn.Module):
 
     def forward(self, x):
         if self.training:
-            mean, var = batch_stats(x, self.process_group)
-            self.record(mean, var)
-        else:
-            mean, var = self.running_mean, self.running_var
-        a, b = bn_fold(mean, var, self.weight, self.bias, self.eps, x)
-        return x * a + b
+            running = None
+            if self.update_stats:
+                running = (self.running_mean, self.running_var, self.num_batches_tracked)
+            y, _ = batch_norm_train(x, self.weight, self.bias, self.eps, self.relu, running,
+                                    self.process_group)
+            return y
+        a, b = bn_fold(self.running_mean, self.running_var, self.weight, self.bias, self.eps, x)
+        y = x * a + b
+        return torch.relu(y) if self.relu else y
 
     def record(self, mean, var) -> None:
         """Mix a training batch's (mean, biased var) into the running
         statistics and count the batch, unless ``update_stats`` is off.
         The fused trunk units (kernels/fused_block.py) return their
         statistics, and their modules record them here."""
-        if not self.update_stats:
-            return
-        with torch.no_grad():
-            m = self.momentum
-            self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
-            self.running_var.copy_(m * self.running_var + (1 - m) * var)
-            self.num_batches_tracked.add_(1)
+        if self.update_stats:
+            update_running((self.running_mean, self.running_var, self.num_batches_tracked),
+                           mean, var)
 
 
 def batch_stats(x, group=None):
@@ -180,17 +182,6 @@ def batch_stats(x, group=None):
     of ``group``; differentiable (_BatchMoments)."""
     mean, sq = _BatchMoments.apply(x, group)
     return mean, sq - mean.square()
-
-
-def bn_fold(mean, var, weight, bias, eps: float, x):
-    """(a, b) of SplitBatchNorm, so that the normalisation is the one
-    ``x * a + b``: with inv = weight / sqrt(var + eps) in the statistics'
-    dtype, a = inv and b = bias - mean * inv, cast to the dtype of ``x``
-    and shaped to broadcast over its dim 1."""
-    inv = weight * torch.rsqrt(var + eps)
-    shape = [1] * x.ndim
-    shape[1] = x.shape[1]
-    return inv.to(x.dtype).view(shape), (bias - mean * inv).to(x.dtype).view(shape)
 
 
 @contextlib.contextmanager

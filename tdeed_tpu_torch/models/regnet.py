@@ -80,9 +80,10 @@ def _kaiming_fan_out(conv: nn.Conv2d) -> None:
 
 
 class ConvBN(nn.Module):
-    """Conv (no bias) + SplitBatchNorm + optional ReLU. Padding is torch's
-    symmetric k//2, which the JAX package spells out explicitly because
-    XLA's SAME differs at stride 2 (regnet.py:82-93)."""
+    """Conv (no bias) + SplitBatchNorm + optional ReLU (the BatchNorm's
+    own). Padding is torch's symmetric k//2, which the JAX package spells
+    out explicitly because XLA's SAME differs at stride 2
+    (regnet.py:82-93)."""
 
     def __init__(self, cin, cout, k=3, stride=1, groups=1, act=True):
         super().__init__()
@@ -91,12 +92,10 @@ class ConvBN(nn.Module):
             bias=False,
         )
         _kaiming_fan_out(self.conv)
-        self.bn = SplitBatchNorm(cout)
-        self.act = act
+        self.bn = SplitBatchNorm(cout, relu=act)
 
     def forward(self, x):
-        x = self.bn(self.conv(x))
-        return torch.relu(x) if self.act else x
+        return self.bn(self.conv(x))
 
 
 class SEModule(nn.Module):

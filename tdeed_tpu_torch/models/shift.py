@@ -39,8 +39,9 @@ def _interleave_halves(y1: torch.Tensor, y2: torch.Tensor) -> torch.Tensor:
 
 def _bn_relu(bn, x):
     """relu(bn(x)) over the channel dim of (B, T, H, W, C), normalised as
-    the (B, C, T, H, W) view."""
-    return torch.relu(bn(x.permute(0, 4, 1, 2, 3))).permute(0, 2, 3, 4, 1)
+    the (B, C, T, H, W) view (channels innermost in memory); ``bn`` is a
+    SplitBatchNorm with its ReLU."""
+    return bn(x.permute(0, 4, 1, 2, 3)).permute(0, 2, 3, 4, 1)
 
 
 class GSM(nn.Module):
@@ -56,7 +57,7 @@ class GSM(nn.Module):
         self.conv3D = Conv3d(channels, 2, 3, padding=1, groups=2)
         nn.init.zeros_(self.conv3D.weight)
         nn.init.zeros_(self.conv3D.bias)
-        self.bn = SplitBatchNorm(channels)
+        self.bn = SplitBatchNorm(channels, relu=True)
 
     def forward(self, x):
         gate = gsf_gate(_bn_relu(self.bn, x), self.conv3D.weight, self.conv3D.bias)
@@ -73,7 +74,7 @@ class GSF(nn.Module):
         if channels % 4:
             raise ValueError(f"GSF needs channels divisible by 4, got {channels}")
         self.conv3D = Conv3d(channels, 2, 3, padding=1, groups=2)
-        self.bn = SplitBatchNorm(channels)
+        self.bn = SplitBatchNorm(channels, relu=True)
         self.channel_conv1 = Conv2d(2, 1, 3, padding=1)
         self.channel_conv2 = Conv2d(2, 1, 3, padding=1)
 

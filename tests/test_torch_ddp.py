@@ -122,10 +122,21 @@ def ddp(tmp_path_factory):
         "trunk_x": torch.from_numpy(rng.normal(size=(TRUNK_FRAMES, 3, TRUNK_HW, TRUNK_HW))),
         "trunk_c": torch.from_numpy(rng.normal(size=(TRUNK_FRAMES, 368))),
     }
+    bnf = np.random.default_rng(7)
+    inputs["bnf"] = {
+        "x": torch.from_numpy(bnf.normal(0.5, 1.5, (B, 3, 2, 3, 92))),
+        "c": torch.from_numpy(bnf.normal(size=(B, 3, 2, 3, 92))),
+        "weight": torch.from_numpy(bnf.uniform(0.5, 1.5, 92)),
+        "bias": torch.from_numpy(bnf.normal(size=92)),
+        "running_mean": torch.from_numpy(bnf.normal(0.0, 0.1, 92)),
+        "running_var": torch.from_numpy(bnf.uniform(0.5, 1.5, 92)),
+    }
     torch.save(inputs, root / "inputs.pt")
     procs = worker.start(worker.step_cases, root)
     try:
         ref = {"inputs": inputs}
+        ref["bn_fn"] = worker.bn_function_run(inputs["bnf"], inputs["bnf"]["x"],
+                                              inputs["bnf"]["c"])
         ref["trunk"] = worker.fused_trunk_run(inputs["trunk_state"], inputs["trunk_x"],
                                               inputs["trunk_c"])
         for name, mixup, acc, dtype, replaced, fuse in worker.STEP_CASES:
@@ -174,6 +185,26 @@ def test_batchnorm_over_two_ranks_is_the_global_batch_norm(ddp):
         _close(got["running_var"], bn.running_var, 1e-12, "running var")
     for name, want in (("weight_grad", bn.weight.grad), ("bias_grad", bn.bias.grad)):
         _close(sum(o["bn"][name] for o in ranks) / W, want, 1e-12, name)
+
+
+def test_batchnorm_function_over_two_ranks_is_the_global_batch_norm(ddp):
+    """The training BatchNorm Function with its ReLU, on the GSF gate's
+    (B, C, T, H, W) view, over two ranks against one process over the whole
+    batch, float64 at 1e-12: each rank's output is its rows of the global
+    one, the batch statistics and running statistics are the global batch's
+    on both ranks, each rank's input gradient is W times its rows of the
+    global one, and the ranks' mean parameter gradient is the global one."""
+    ref, ranks = ddp
+    want = ref["bn_fn"]
+    for r, out in enumerate(ranks):
+        got = out["bn_fn"]
+        _close(got["y"], _rows(want["y"], r), 1e-12, "y")
+        _close(got["x_grad"], W * _rows(want["x_grad"], r), 1e-12, "x grad")
+        for k in ("stats", "running_mean", "running_var"):
+            _close(got[k], want[k], 1e-12, k)
+        assert int(got["batches"]) == int(want["batches"]) == 1
+    for name in ("weight_grad", "bias_grad"):
+        _close(sum(o["bn_fn"][name] for o in ranks) / W, want[name], 1e-12, name)
 
 
 def test_weighted_ce_hard_over_two_ranks_is_the_global_loss(ddp):

@@ -17,6 +17,13 @@ floored the same way (the tensor cores add each k16 step's fp32 products
 in their own order), and the same bits from every call;
 outerp's fp32 (C, C) sum within 1e-5 of its largest entry against a
 float64 sum (its tensor cores too), and the same bits from every call.
+The BatchNorm kernels (tdeed_tpu_torch/csrc/batchnorm.cu) against their
+plain twins at the trunk's shapes in both benchmark cells: the moments
+and the gradient's sums within 1e-5 of a float64 sum, relative to the sum
+of the terms' magnitudes (the fp32 sums run in another order); y and the
+running statistics bit for bit given the kernel's moments; dx within 1
+bf16 ulp given the kernel's sums (the twin on the card divides by the row
+count as a multiply by its reciprocal).
 """
 
 import pytest
@@ -402,3 +409,198 @@ def test_probe_launch_counters_and_errors(cuda):
         probe.perpix(x, wt.cpu())
     with pytest.raises(TypeError):
         probe.stream(x.float())
+
+
+# ---------------------------------------------------------------------------
+# The BatchNorm kernels
+# ---------------------------------------------------------------------------
+
+
+def _bn_shapes(frames, h, w):
+    """(frames, C, H, W) of each trunk BatchNorm of rny002_gsf at h x w:
+    the stem, each stage's conv1 at its input's resolution and conv2 at
+    its output's, stage 4's width at stage 3's resolution (s4_b1's conv1),
+    and the GSF folds (16, 40, 92) at their block inputs' resolutions."""
+    def r(k):
+        return (-(-h // 2 ** k), -(-w // 2 ** k))
+
+    return [(frames, c, *r(k)) for c, k in (
+        (32, 1), (24, 1), (24, 2), (56, 2), (56, 3), (152, 3), (152, 4), (368, 4), (368, 5),
+        (16, 3), (40, 4), (92, 5))]
+
+
+# the two cells: FineDiving 8 x 100 crops of 224^2, SoccerNet Ball 4 x 100
+# full 448 x 796 frames
+BN_SHAPES = _bn_shapes(800, 224, 224) + _bn_shapes(400, 448, 796)
+
+
+def _bn_case(shape, dtype, device, seed=0):
+    n, c, h, w = shape
+    g = torch.Generator(device=device).manual_seed(seed + c)
+    x = (torch.randn((n, h, w, c), generator=g, device=device) * 1.5 + 0.3).to(dtype)
+    gy = torch.randn((n, h, w, c), generator=g, device=device).to(dtype)
+    weight = torch.rand(c, generator=g, device=device) + 0.5
+    bias = 0.5 * torch.randn(c, generator=g, device=device)
+    return x.permute(0, 3, 1, 2), gy.permute(0, 3, 1, 2), weight, bias
+
+
+def _sums_close(got, want64, scale64, what):
+    err = (got.double() - want64).abs()
+    bound = 1e-5 * scale64
+    assert bool((err <= bound).all()), (what, float((err / bound).max()))
+
+
+@pytest.mark.parametrize("relu", [True, False])
+@pytest.mark.parametrize("shape", BN_SHAPES)
+def test_bn_kernels_match_the_twins(cuda, shape, relu):
+    from tdeed_tpu_torch.kernels import batchnorm as bn
+
+    x, gy, weight, bias = _bn_case(shape, torch.bfloat16, cuda)
+    x64 = x.double()
+    dims = [0, 2, 3]
+
+    moments = bn.bn_stats(x)
+    want = torch.stack([x64.mean(dims), x64.square().mean(dims)])
+    _sums_close(moments, want, torch.stack([x64.abs().mean(dims), want[1]]), "moments")
+    assert torch.equal(moments, bn.bn_stats(x))  # the same bits every call
+
+    running = (torch.zeros_like(weight), torch.ones_like(weight),
+               torch.zeros((), dtype=torch.long, device=cuda))
+    y, stats = bn.bn_apply(x, moments, weight, bias, 1e-5, relu, running)
+    want_run = (torch.zeros_like(weight), torch.ones_like(weight),
+                torch.zeros((), dtype=torch.long, device=cuda))
+    y_twin, stats_twin = bn.bn_apply_reference(x, moments, weight, bias, 1e-5, relu, want_run)
+    assert y.stride() == x.stride()
+    assert torch.equal(y, y_twin)
+    assert torch.equal(stats, stats_twin)
+    for got, ref in zip(running, want_run):
+        assert torch.equal(got, ref)
+
+    sums = bn.bn_grad_sums(x, gy, stats, weight, bias, 1e-5, relu)
+    dz, _ = bn._masked(x, gy, stats, weight, bias, 1e-5, relu)
+    dz64 = dz.double()
+    want = torch.stack([dz64.sum(dims), (dz64 * x64).sum(dims)])
+    _sums_close(sums, want, torch.stack([dz64.abs().sum(dims), (dz64 * x64).abs().sum(dims)]),
+                "sums")
+
+    n_rows = x.numel() // x.shape[1]
+    dx, dw, db = bn.bn_grad_apply(x, gy, stats, weight, bias, 1e-5, relu, sums, sums, n_rows)
+    dx_t, dw_t, db_t = bn.bn_grad_apply_reference(x, gy, stats, weight, bias, 1e-5, relu,
+                                                  sums, sums, n_rows)
+    assert dx.stride() == x.stride()
+    _assert_within_bf16_ulp(dx, dx_t)
+    for got, ref in ((dw, dw_t), (db, db_t)):
+        assert torch.allclose(got, ref, rtol=1e-5, atol=1e-5 * float(ref.abs().max()))
+
+
+@pytest.mark.parametrize("shape", [(64, 32, 56, 56), (64, 92, 7, 7), (64, 368, 7, 7),
+                                   (10, 3, 5, 7)])
+def test_bn_kernels_take_fp32(cuda, shape):
+    """fp32 activations: the sums as in bf16, y and dx within 2^-20 of
+    their magnitudes (the twin rounds in another order on the card)."""
+    from tdeed_tpu_torch.kernels import batchnorm as bn
+
+    x, gy, weight, bias = _bn_case(shape, torch.float32, cuda, seed=5)
+    moments = bn.bn_stats(x)
+    x64 = x.double()
+    want = torch.stack([x64.mean([0, 2, 3]), x64.square().mean([0, 2, 3])])
+    _sums_close(moments, want, torch.stack([x64.abs().mean([0, 2, 3]), want[1]]), "moments")
+    y, stats = bn.bn_apply(x, moments, weight, bias, 1e-5, True)
+    y_t, _ = bn.bn_apply_reference(x, moments, weight, bias, 1e-5, True)
+    assert torch.equal(y, y_t)
+    sums = bn.bn_grad_sums(x, gy, stats, weight, bias, 1e-5, True)
+    n = x.numel() // x.shape[1]
+    dx, _, _ = bn.bn_grad_apply(x, gy, stats, weight, bias, 1e-5, True, sums, sums, n)
+    dx_t, _, _ = bn.bn_grad_apply_reference(x, gy, stats, weight, bias, 1e-5, True, sums,
+                                            sums, n)
+    assert torch.allclose(dx, dx_t, rtol=2.0 ** -20, atol=2.0 ** -20 * float(dx_t.abs().max()))
+
+
+@pytest.mark.parametrize("view", ["misaligned", "gsf", "fold of 152", "fold of 368"])
+def test_bn_kernels_take_views(cuda, view):
+    """A pointer 2 bytes off 16 (one bf16 a load); the GSF gate's
+    (B, C, T, H, W) view of a (B, T, H, W, C) tensor; and that view of the
+    first 40 (or 92) channels of a channels_last activation of 152 (368),
+    rows 152 (368) apart, as GatedShift.shift gives it. Forward and
+    backward against the twins; the outputs are dense."""
+    from tdeed_tpu_torch.kernels import batchnorm as bn
+
+    c = {"fold of 368": 92}.get(view, 40)
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    if view == "misaligned":
+        buf = torch.randn(2 * 8 * 8 * c + 1, generator=gen, device=cuda).to(torch.bfloat16)
+        x = buf[1:].view(2, 8, 8, c).permute(0, 3, 1, 2)
+    elif view == "gsf":
+        x = torch.randn(2, 4, 6, 6, c, generator=gen, device=cuda).to(
+            torch.bfloat16).permute(0, 4, 1, 2, 3)
+    else:
+        wide = int(view.split()[-1])
+        act = torch.randn(8, 14, 14, wide, generator=gen, device=cuda).to(torch.bfloat16)
+        x = act.permute(0, 3, 1, 2)[:, :c].permute(0, 2, 3, 1).reshape(2, 4, 14, 14, c)
+        x = x.permute(0, 4, 1, 2, 3)
+        assert bn.pitch(x) == wide
+    gy = bn._dense_like(x).copy_(torch.randn(x.shape, generator=gen, device=cuda))
+    w, b = torch.rand(c, device=cuda) + 0.5, torch.randn(c, device=cuda)
+    m = bn.bn_stats(x)
+    _sums_close(m[0], x.double().mean([0, 2, 3, 4][:x.ndim - 1]),
+                x.double().abs().mean([0, 2, 3, 4][:x.ndim - 1]), "mean")
+    y, stats = bn.bn_apply(x, m, w, b, 1e-5, True)
+    assert bn.pitch(y) == c
+    assert torch.equal(y, bn.bn_apply_reference(x, m, w, b, 1e-5, True)[0])
+    n = x.numel() // c
+    sums = bn.bn_grad_sums(x, gy, stats, w, b, 1e-5, True)
+    dx = bn.bn_grad_apply(x, gy, stats, w, b, 1e-5, True, sums, sums, n)[0]
+    assert bn.pitch(dx) == c
+    _assert_within_bf16_ulp(dx, bn.bn_grad_apply_reference(x, gy, stats, w, b, 1e-5, True,
+                                                           sums, sums, n)[0])
+
+
+def test_bn_kernels_refuse_other_layouts_and_dtypes(cuda):
+    from tdeed_tpu_torch.kernels import batchnorm as bn
+
+    w, b = torch.ones(8, device=cuda), torch.zeros(8, device=cuda)
+    x = torch.randn(2, 8, 4, 4, device=cuda)  # contiguous NCHW: channels outermost
+    before = bn.bn_stats.launches
+    with pytest.raises(ValueError, match="innermost"):
+        bn.bn_stats(x)
+    with pytest.raises(ValueError, match="innermost"):
+        bn.batch_norm_train(x.requires_grad_(), w, b, 1e-5, True)
+    with pytest.raises(TypeError):
+        bn.bn_stats(x.half().contiguous(memory_format=torch.channels_last))
+    assert bn.bn_stats.launches == before
+
+
+def test_flagship_step_runs_every_batchnorm_through_the_kernels(cuda):
+    """One FineDiving_small training step on the card (rny002_gsf: 44
+    ConvBN BatchNorms and 11 GSF gates) launches each of the four kernels
+    55 times: every trunk BatchNorm, forward and backward."""
+    import os
+
+    from tdeed_tpu_torch import load_config
+    from tdeed_tpu_torch.kernels import batchnorm as bn
+    from tdeed_tpu_torch.models.common import SplitBatchNorm
+    from tdeed_tpu_torch.models.tdeed import build_model
+    from tdeed_tpu_torch.train.schedule import make_optimizer
+    from tdeed_tpu_torch.train.step import make_train_step
+
+    root = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "configs")
+    cfg = load_config("FineDiving_small", config_root=root)
+    torch.manual_seed(0)
+    model = build_model(cfg, device="cuda")
+    n_bn = sum(isinstance(m, SplitBatchNorm) for m in model.modules())
+    assert n_bn == 55
+    opt, sched = make_optimizer(model.parameters(), cfg.learning_rate, 100, 10_000)
+    step = make_train_step(model, opt, sched, crop_dim=cfg.crop_dim,
+                           num_classes_bg=cfg.num_classes_bg, mixup=cfg.mixup,
+                           radi_displacement=cfg.radi_displacement)
+    g = torch.Generator(device=cuda).manual_seed(0)
+    shape = (cfg.batch_size, cfg.clip_len, 256, 256, 3)
+    batch = {k: torch.randint(0, 256, shape, generator=g, device=cuda, dtype=torch.uint8)
+             for k in ("frame", "frame2")}
+    batch.update({k: torch.randint(0, cfg.num_classes_bg, shape[:2], generator=g, device=cuda)
+                  for k in ("label", "label2")})
+    fns = (bn.bn_stats, bn.bn_apply, bn.bn_grad_sums, bn.bn_grad_apply)
+    before = [f.launches for f in fns]
+    assert torch.isfinite(step(batch)["loss"])
+    torch.cuda.synchronize()
+    assert [f.launches - n for f, n in zip(fns, before)] == [n_bn] * 4

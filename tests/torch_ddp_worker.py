@@ -117,6 +117,24 @@ def rows(x, rank: int, world: int, acc_grad_iter: int = 1):
     return x[mesh.global_rows(x.shape[0], acc_grad_iter, rank, world)]
 
 
+def bn_function_run(case, x, c, group=None):
+    """kernels.batchnorm.batch_norm_train with ReLU on the (B, C, T, H, W)
+    view of ``x`` (B, T, H, W, C), over ``group``'s global batch when given,
+    under the loss mean(y * c): y, the statistics, the gradients of x and
+    the parameters and the running statistics."""
+    from tdeed_tpu_torch.kernels.batchnorm import batch_norm_train
+
+    x = x.clone().requires_grad_(True)
+    weight, bias = (case[k].clone().requires_grad_(True) for k in ("weight", "bias"))
+    running = (case["running_mean"].clone(), case["running_var"].clone(), torch.tensor(0))
+    y, stats = batch_norm_train(x.permute(0, 4, 1, 2, 3), weight, bias, 1e-5, True, running,
+                                group)
+    (y * c.permute(0, 4, 1, 2, 3)).mean().backward()
+    return {"y": y.detach().permute(0, 2, 3, 4, 1), "stats": stats, "x_grad": x.grad,
+            "weight_grad": weight.grad, "bias_grad": bias.grad, "running_mean": running[0],
+            "running_var": running[1], "batches": running[2]}
+
+
 def fused_trunk_run(state_dict, x, c, group=None):
     """The float64 FUSED_TRUNK from ``state_dict``, over ``group``'s global
     batch when given, in train mode on frames ``x`` (N, 3, H, W): its
@@ -152,6 +170,12 @@ def step_cases(rank: int, world: int, port: int, root: str) -> None:
         out["bn"] = {"y": y.detach(), "x_grad": x.grad, "weight_grad": bn.weight.grad,
                      "bias_grad": bn.bias.grad, "running_mean": bn.running_mean,
                      "running_var": bn.running_var}
+
+        # the training BatchNorm Function with its ReLU over the GSF gate's
+        # (B, C, T, H, W) view, float64
+        out["bn_fn"] = bn_function_run(inputs["bnf"], rows(inputs["bnf"]["x"], rank, world),
+                                       rows(inputs["bnf"]["c"], rank, world),
+                                       torch.distributed.group.WORLD)
 
         # the hard weighted CE, float64
         logits = rows(inputs["ce_logits"], rank, world).clone().requires_grad_(True)

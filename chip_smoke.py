@@ -1418,8 +1418,8 @@ def snb_phase(torch, smi):
     preprocess = step_mod.train_preprocess
     seen = {}
 
-    def capture(frames, params):
-        out = preprocess(frames, params)
+    def capture(frames, params, *into):
+        out = preprocess(frames, params, *into)  # into: the trunk graph's input, if any
         if "frames" not in seen:  # the first micro-batch of the run
             seen.update(frames=frames.to(torch.bfloat16).clone(), params=params.clone(),
                         out=out.clone())

@@ -29,6 +29,7 @@ from __future__ import annotations
 import ctypes
 import functools
 from dataclasses import dataclass
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -309,24 +310,32 @@ def _kernel():
     return fn
 
 
-def photometric(frames: torch.Tensor, params: torch.Tensor) -> torch.Tensor:
+def photometric(frames: torch.Tensor, params: torch.Tensor,
+                out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Fused photometric augmentation, (B, T, H, W, 3) uint8 or bf16 0..255
-    -> standardized (B, T, H, W, 3) bf16.
+    -> standardized (B, T, H, W, 3) bf16, written into ``out`` when given
+    (a contiguous bf16 tensor of the frames' shape on their device).
 
     A CUDA tensor launches the kernel on the current stream, one launch
     laid out by ``photometric_plan``, allocating nothing but its output
     (it raises on any launch error; two calls give the same bits); a CPU
     tensor runs ``photometric_reference``. ``photometric.launches`` counts
     kernel launches."""
+    if out is not None and (out.shape != frames.shape or out.dtype != torch.bfloat16
+                            or out.device != frames.device or not out.is_contiguous()):
+        raise ValueError(f"out must be contiguous bf16 {tuple(frames.shape)} on "
+                         f"{frames.device}, got {out.dtype} {tuple(out.shape)} on {out.device}")
     if frames.device.type == "cpu":
-        return photometric_reference(frames, params)
+        y = photometric_reference(frames, params)
+        return y if out is None else out.copy_(y)
     if frames.device.type != "cuda":
         raise ValueError(f"photometric runs on cuda or cpu, not {frames.device}")
     _check(frames, params)
     bsz, t, h, w, _ = frames.shape
     plan = photometric_plan(h, w, frames.dtype)
     fn = _kernel()
-    out = torch.empty(frames.shape, dtype=torch.bfloat16, device=frames.device)
+    if out is None:
+        out = torch.empty(frames.shape, dtype=torch.bfloat16, device=frames.device)
     with torch.cuda.device(frames.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(
@@ -349,15 +358,18 @@ def _staged(frames: torch.Tensor) -> torch.Tensor:
     return frames if frames.dtype == torch.uint8 else frames.to(torch.bfloat16)
 
 
-def train_preprocess(frames: torch.Tensor, params: torch.Tensor) -> torch.Tensor:
+def train_preprocess(frames: torch.Tensor, params: torch.Tensor,
+                     out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The training step's augmentation (the JAX package's
     train_preprocess_pallas after its crop): frames (B, T, H, W, 3) uint8,
     or the float mixup blend 0..255, which is staged as bf16; params
     (B, 16) from sample_params with the flip gate in slot 14. Returns
-    standardized bf16 (B, T, H, W, 3). ``photometric``: the kernel on a
-    CUDA tensor, the plain chain on a CPU one."""
-    frames = _staged(frames)
-    return photometric(frames.contiguous(), params.to(frames.device).contiguous())
+    standardized bf16 (B, T, H, W, 3), in ``out`` when given.
+    ``photometric``: the kernel on a CUDA tensor, the plain chain on a
+    CPU one."""
+    frames = _staged(frames).contiguous()
+    params = params.to(frames.device).contiguous()
+    return photometric(frames, params) if out is None else photometric(frames, params, out)
 
 
 def train_preprocess_plain(frames: torch.Tensor, params: torch.Tensor) -> torch.Tensor:

@@ -33,6 +33,7 @@ function the CPU tests check.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 from dataclasses import dataclass
@@ -241,13 +242,41 @@ def _sms(index: int) -> int:
 # reduction sets each back to 0. Kernels on one stream run one at a time,
 # so a stream needs one set; two streams never share one.
 _TICKETS = {}
+# the counters of the CUDA graphs being captured, by (device, stream)
+_CAPTURING = {}
 
 
 def _tickets(device: torch.device, stream: int) -> torch.Tensor:
     key = (device.index, stream)
+    if key in _CAPTURING:
+        return _CAPTURING[key]
     if key not in _TICKETS:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("a BatchNorm kernel captured into a CUDA graph needs "
+                               "ticket counters of its own (captured_tickets)")
         _TICKETS[key] = torch.zeros(TICKETS, dtype=torch.int32, device=device)
     return _TICKETS[key]
+
+
+def graph_tickets(device: torch.device) -> torch.Tensor:
+    """Ticket counters for the kernels of CUDA graphs, all zero: allocate
+    them before a capture and keep them as long as the graphs."""
+    return torch.zeros(TICKETS, dtype=torch.int32, device=device)
+
+
+@contextlib.contextmanager
+def captured_tickets(tickets: torch.Tensor, stream: int):
+    """Within, the kernels launched on ``stream`` (a capturing one) take
+    ``tickets`` (``graph_tickets``) for their counters. No eager launch
+    sees them, and each replay leaves them at zero, as every launch does.
+    A captured stream's kernels run one at a time, so graphs replayed one
+    after another on one stream can share one set."""
+    key = (tickets.device.index, stream)
+    _CAPTURING[key] = tickets
+    try:
+        yield
+    finally:
+        del _CAPTURING[key]
 
 
 def pitch(x: torch.Tensor) -> Optional[int]:

@@ -11,14 +11,16 @@ trees.
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn as nn
 
+from tdeed_tpu_torch.models.graphs import ModelGraphs
 from tdeed_tpu_torch.models.heads import FC2Layers, FCLayers
 from tdeed_tpu_torch.models.regnet import ARCH_PARAMS, RegNetY
 from tdeed_tpu_torch.models.sgp import EDSGPMixer
+from tdeed_tpu_torch.utils import profiling
 from tdeed_tpu_torch.utils.profiling import BackwardSegments, annotate
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
@@ -46,6 +48,13 @@ class TDEED(nn.Module):
     ``dropout_heads`` ('pred_fine', or 'pred_fine.fc1' and 'pred_fine.fc2'
     with two heads; 'pred_displ') to boolean (B, T, D) keep masks; without
     it the heads apply no dropout.
+
+    In training on the card the three layers replay CUDA graphs, captured
+    at the first forward of each input shape (models/graphs.py): the same
+    kernels, issued in three launches a pass. ``frames_buffer`` hands out
+    the trunk graph's input for a caller to write frames into. Each
+    training step's record counts the layers replayed and those run
+    eagerly (utils/profiling.py ``STEPS``).
     """
 
     def __init__(self, num_classes: int, clip_len: int, n_layers: int = 2,
@@ -60,6 +69,9 @@ class TDEED(nn.Module):
         self.clip_len = clip_len
         self.dtype = dtype
         self.two_heads = None if two_heads is None else tuple(two_heads)
+        # the knobs whose layers run eagerly in training (models/graphs.py)
+        self.eager_only = checkpoint_backbone or fuse_entry or fuse_shift
+        self._graphs = ModelGraphs()
         self._features = RegNetY(arch, clip_len=clip_len, shift_mode=shift_mode,
                                  checkpoint_blocks=checkpoint_backbone,
                                  fuse_entry=fuse_entry, fuse_shift=fuse_shift)
@@ -85,40 +97,67 @@ class TDEED(nn.Module):
                 else ["pred_fine.fc1", "pred_fine.fc2"])
         return fine + (["pred_displ"] if self._pred_displ is not None else [])
 
+    def layer_parameters(self) -> Tuple[List[nn.Parameter], ...]:
+        """The parameters of the trunk, the temporal layer and the heads."""
+        heads = list(self._pred_fine.parameters())
+        if self._pred_displ is not None:
+            heads += list(self._pred_displ.parameters())
+        return (list(self._features.parameters()),
+                [self.temp_enc, *self._temp_fine.parameters()], heads)
+
+    def frames_buffer(self, shape: Sequence[int], dtype: torch.dtype,
+                      device) -> Optional[torch.Tensor]:
+        """The tensor a train-mode forward of (B, T, H, W, 3) frames of
+        ``shape`` and ``dtype`` reads in place, for the caller to write
+        them into; None where the layers run eagerly and any tensor does.
+        Write into it only once the backward of the forward that read it
+        last has run."""
+        return self._graphs.frames_buffer(self, shape, dtype, device)
+
+    def _trunk(self, frames: torch.Tensor) -> torch.Tensor:
+        b, t, h, w, c = frames.shape
+        # (B*T, 3, H, W) view in channels_last memory: no copy
+        x = frames.reshape(b * t, h, w, c).permute(0, 3, 1, 2).to(self.dtype)
+        return self._features(x).reshape(b, t, -1)
+
+    def _temporal(self, feat: torch.Tensor) -> torch.Tensor:
+        return self._temp_fine(feat + self.temp_enc.to(feat.dtype))
+
+    def _heads(self, feat: torch.Tensor, *masks: Optional[torch.Tensor]
+               ) -> Tuple[torch.Tensor, ...]:
+        """(logits,) or (logits, displ), fp32; ``masks`` in
+        ``dropout_heads`` order."""
+        if self._pred_displ is None:
+            return (self._pred_fine(feat, *masks).float(),)
+        return (self._pred_fine(feat, *masks[:-1]).float(),
+                self._pred_displ(feat, masks[-1])[..., 0].float())
+
     def forward(
         self,
         frames: torch.Tensor,
         dropout_keep: Optional[Dict[str, torch.Tensor]] = None,
     ) -> Dict[str, torch.Tensor]:
-        b, t, h, w, c = frames.shape
+        t = frames.shape[1]
         if t != self.clip_len:
             raise ValueError(f"clip length {t} != model clip_len {self.clip_len}")
         keep = dropout_keep or {}
+        masks = [keep.get(name) for name in self.dropout_heads]
+        chain = self._graphs.chain(self, frames, masks)
+        profiling.STEPS.count_layers(graphed=3 if chain else 0, eager=0 if chain else 3)
         # with grad on, each layer's last output opens its backward region
         segments = BackwardSegments()
-        # (B*T, 3, H, W) view in channels_last memory: no copy
         with annotate("trunk"):
-            x = frames.reshape(b * t, h, w, c).permute(0, 3, 1, 2).to(self.dtype)
-            feat = self._features(x).reshape(b, t, -1)
+            (feat,) = chain.trunk(frames) if chain else (self._trunk(frames),)
             segments.mark(feat, "backward.trunk")
         with annotate("temporal"):
-            feat = feat + self.temp_enc.to(feat.dtype)
-            feat = self._temp_fine(feat)
+            (feat,) = chain.temporal(feat) if chain else (self._temporal(feat),)
             segments.mark(feat, "backward.temporal")
-        out = {}
         with annotate("heads"):
-            if self._pred_displ is not None:
-                out["displ"] = self._pred_displ(
-                    feat, keep.get("pred_displ")
-                )[..., 0].float()
-            if self.two_heads is None:
-                logits = self._pred_fine(feat, keep.get("pred_fine"))
-            else:
-                logits = self._pred_fine(
-                    feat, keep.get("pred_fine.fc1"), keep.get("pred_fine.fc2")
-                )
-            out["logits"] = logits.float()
-            for y in out.values():
+            ys = chain.heads(feat, *masks) if chain else self._heads(feat, *masks)
+            out = {"logits": ys[0]}
+            if len(ys) > 1:
+                out["displ"] = ys[1]
+            for y in ys:
                 segments.mark(y, "backward.heads")
         return out
 

@@ -41,6 +41,11 @@ device in place of the kernel (``train_preprocess_plain``); None and True
 launch the kernel on a CUDA device. On the CPU every setting runs the
 plain chain.
 
+On the card the step issues its work with no host wait: the host's draws
+reach the card from pinned memory, asynchronously, and the kernel writes
+straight into the model's trunk graph input (``TDEED.frames_buffer``;
+the model replays its layers as CUDA graphs, models/graphs.py).
+
 Regions: ``annotate`` spans (utils/profiling.py) name a step's stages in
 a ``torch.profiler`` trace: ``draw`` (when the step draws its own random
 values) and ``zero_grad`` on the host alone, ``crop``, ``mixup``, ``K1``
@@ -100,6 +105,16 @@ def _device_of(model: torch.nn.Module) -> torch.device:
 
 def _on(x, device):
     return None if x is None else torch.as_tensor(x).to(device, non_blocking=True)
+
+
+def _upload(x: torch.Tensor, device: torch.device) -> torch.Tensor:
+    """A host draw on ``device``, with no host wait: a copy bound for the
+    card leaves from pinned memory, asynchronously (pageable memory would
+    make the host wait for the card to reach the copy). PyTorch's pinned
+    allocator keeps the pinned block until the copy has run."""
+    if device.type == "cuda" and x.device.type == "cpu":
+        return x.pin_memory().to(device, non_blocking=True)
+    return x.to(device)
 
 
 def _head2_offset(label, dataset_id, num_classes_bg: int):
@@ -220,15 +235,18 @@ class TrainStep:
             with annotate("mixup"):
                 frames, soft, label_d = augment.mixup_batch(
                     frames, label, frames2, label2,
-                    draws.lam.to(dev), self.total_bg,
+                    _upload(draws.lam, dev), self.total_bg,
                     label_d, _on(batch.get("labelD2"), dev),
                 )
         kernel = self.preprocess is None and self.pallas_augment is not False
         preprocess = self.preprocess or (train_preprocess if kernel else train_preprocess_plain)
         # the region names the route taken: the kernel runs on a CUDA tensor only
         with annotate("K1" if kernel and frames.is_cuda else "augment_plain"):
-            x = preprocess(frames, draws.aug.to(dev, non_blocking=True))
-        keep = {k: v.to(dev, non_blocking=True) for k, v in draws.dropout_keep.items()}
+            aug = _upload(draws.aug, dev)
+            # the kernel writes straight into the trunk graph's input, if the model has one
+            into = self.model.frames_buffer(frames.shape, torch.bfloat16, dev) if kernel else None
+            x = preprocess(frames, aug) if into is None else preprocess(frames, aug, into)
+        keep = {k: _upload(v, dev) for k, v in draws.dropout_keep.items()}
         out = self.model(x, dropout_keep=keep)
 
         with annotate("loss"):

@@ -10,7 +10,8 @@ tools/trace_attrib.py). ``STEPS`` keeps the host record of the last 256
 training steps: while a step runs, each ``annotate`` region and each
 backward segment (``BackwardSegments``, the model's ``backward.heads``,
 ``backward.temporal`` and ``backward.trunk``) is a span of it with its
-thread's CPU time, and the record sums the step's host CPU; it is always
+thread's CPU time, the record sums the step's host CPU, and it counts the
+model's layers replayed from CUDA graphs and run eagerly; it is always
 on, kept in memory, and written out only on request (``record_json``).
 ``StepTimer`` times steps on the host clock
 (synchronizing the card around each) with jitter stats; ``time_fn`` times
@@ -126,7 +127,9 @@ class StepRecord:
     engine's worker over the backward segments on the card); ``profiled``,
     whether a ``torch.profiler`` session recorded regions at the step's
     start or end (the warm-up steps of a scheduled session record none and
-    read False)."""
+    read False); ``graph_layers`` and ``eager_layers``, the model's layers
+    its training forwards replayed from CUDA graphs and ran eagerly
+    (models/graphs.py), three a forward."""
 
     thread: int
     start_ns: int
@@ -135,6 +138,8 @@ class StepRecord:
     end_ns: int = 0
     main_cpu_ns: int = 0
     worker_cpu_ns: int = 0
+    graph_layers: int = 0
+    eager_layers: int = 0
     _stacks: Dict[int, List[int]] = field(default_factory=dict, repr=False)
 
     @property
@@ -213,6 +218,13 @@ class StepRecorder:
         rec.profiled = profiled or torch.autograd.profiler._is_profiler_enabled
         self.records.append(rec)
 
+    def count_layers(self, graphed: int, eager: int) -> None:
+        """Count a forward's layers replayed from graphs and run eagerly
+        in the open record, if a step is open."""
+        if self.open is not None:
+            self.open.graph_layers += graphed
+            self.open.eager_layers += eager
+
 
 # every training step's record (train/step.py), read by the benchmark's
 # train_step.host_cpu_ms and by tools/profile_step.py
@@ -276,7 +288,8 @@ def record_json(rec: StepRecord, t0_ns: int) -> Dict[str, object]:
         "start_us": (rec.start_ns - t0_ns) / 1e3, "end_us": (rec.end_ns - t0_ns) / 1e3,
         "profiled": rec.profiled, "host_cpu_ms": rec.host_cpu_ns / 1e6,
         "main_cpu_ms": rec.main_cpu_ns / 1e6, "worker_cpu_ms": rec.worker_cpu_ns / 1e6,
-        "thread": rec.thread,
+        "thread": rec.thread, "graph_layers": rec.graph_layers,
+        "eager_layers": rec.eager_layers,
         "spans": [{"name": s.name, "parent": s.parent, "thread": s.thread,
                    "start_us": (s.start_ns - t0_ns) / 1e3, "end_us": (s.end_ns - t0_ns) / 1e3,
                    "cpu_ms": s.cpu_ns / 1e6} for s in rec.spans],

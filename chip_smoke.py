@@ -21,7 +21,7 @@ Phases, each fatal on failure:
      each benchmark cell's largest BatchNorm, the stem, bf16 with ReLU,
      against their plain twins (the moments and sums against float64, y
      bit for bit and dx within 1 bf16 ulp given the kernel's statistics),
-     each timed beside its bound, its twin and the eager autograd chain;
+     each timed beside its bound and its twin;
      their launches are counted on each later phase's paths, and every
      path that trains must launch them;
   3b. probe: the probe tool (tdeed_tpu_torch.tools.profile_probe) on the
@@ -128,26 +128,7 @@ Phases, each fatal on failure:
      mAP: "within"), tools.overfit_check at 100 steps (its default 150 take
      over 20 s on the card; one photometric launch a step) and
      tools.convergence_check with its default 400 steps.
-  12. the fused trunk units (fuse_entry, fuse_shift; kernels/fused_block.py):
-     12a: each unit (stem + s1_b1 and s2_b1 through FusedBlock, a GSF
-     stride-2 block through FusedShiftBlock, a GSF stride-1 block's conv1
-     through FusedConvBNReLU) at FineDiving_small's widths, 2 clips of 100
-     frames, against the port's plain modules on the same weights and
-     inputs (their BatchNorms on the eager op sequence the units
-     reproduce, not on the kernels), fp32 and bf16: forward and running
-     statistics bit for bit
-     (else logged and held to the gradients' bound), gradients within
-     FUSED_FP32_LEAF (fp32) or the JAX package's isolated-flip criterion
-     (bf16, FUSED_BF16_*), each unit's forward + backward timed; 12b: 5
-     flagship steps with both knobs on and 5 plain, same weights, batch
-     and draws: step times, peak memory, step 0's loss (within bf16), one
-     photometric launch and the fused units' calls counted each step; 12c:
-     SoccerNetBall_challenge2's step alone at full frames, knobs off and
-     on (5 steps each) and one step with checkpoint_backbone too, beside
-     9b's numbers; 12d: cli.train over a phase-7 dataset with phase 7's
-     config plus both knobs, 1 epoch: a finite loss, checkpoint_last, one
-     photometric launch a step.
-  13. the measuring tools (tdeed_tpu_torch/tools/), in process at reduced
+  12. the measuring tools (tdeed_tpu_torch/tools/), in process at reduced
      counts: bench (3 + 10 flagship steps, predict 20 + 20 calls, SoccerNet
      Ball challenge training at acc_grad_iter 2 for 2 + 3 steps, the input
      path on 120 frames), bench_snb's k1 and plain variants at
@@ -162,7 +143,7 @@ Phases, each fatal on failure:
 
 The line before the last is a JSON object with each kernel's route, the
 TPU kernel it replaces, its launches on its paths (phases 5-7, phase 8,
-phase 9, phase 10, phase 11, phase 12 and phase 13 for the photometric
+phase 9, phase 10, phase 11 and phase 12 for the photometric
 kernel, each counted from 0, and their sum; the
 probe tool's run for the probe kernels), its
 largest error against the plain version, its time, the plain version's,
@@ -267,36 +248,6 @@ DP_BOUNDS = {
 DP_FLOOR_RATIO = 2.0
 # 10b: the CLI's epoch over the phase-7 dataset: 800 frames = 8 clips = 1 step
 DP_CLI_CONFIG = dict(CLI_CONFIG, epoch_num_frames=800, num_epochs=1)
-# phase 12: the fused trunk units (fuse_entry, fuse_shift)
-FUSED_CLIPS = 2  # 12a: each unit's batch, in clips of FUSED_CLIP frames
-FUSED_CLIP = 100  # FineDiving_small's clip_len
-FUSED_FRAME = 224  # FineDiving_small's crop: the stem's input
-# 12b and 12c: train steps a setting; each reports the median of the
-# steps after the first (the first allocates AdamW's state and picks the
-# cuDNN algorithms), over 4 steps since two flagship steps of 3 could
-# differ by 2x on the card's shared host
-FUSED_STEPS = 5
-FUSED_UNIT_ITERS = 5  # 12a: timed forward + backward calls of each unit
-# 12a fp32: tests/test_torch_fused_block.py's bound, each gradient leaf
-# within it of its largest entry
-FUSED_FP32_LEAF = 5 * 2e-5 + 1e-6
-# 12a bf16: the JAX package's on-device criterion for these units
-# (tools/check_tpu_parity.py:check, docs/DESIGN.md:594-597): an entry is off
-# when |got - want| > 2e-2 + 2e-2 |want| (here with each leaf scaled by its
-# largest entry); a leaf passes with at most 4% of its entries off and the
-# median of got / want over its entries above a tenth of its largest within
-# 5e-3 of 1. It tolerates the isolated flips of cancellation-dominated bf16
-# sums; a systematic error moves the median or many entries.
-FUSED_BF16_TOL = 2e-2
-FUSED_BF16_SHARE = 0.04
-FUSED_BF16_RATIO = 5e-3
-# 12a, either dtype: a leaf outside its bound still passes when the fused
-# unit is within this many times as far from the plain modules as the
-# plain modules' own rerun (a gradient whose reductions do not repeat
-# bit for bit, such as a GSF fusion conv's one-entry bias, a sum that
-# cancels to near 0)
-FUSED_FLOOR_RATIO = 2.0
-BF16_EPS = 2.0 ** -8
 # fp32 operations per pixel of the photometric chain (each add, sub, mul,
 # div, min, max and floor once; the blur as two separable 5-tap passes), for
 # the gates that are on; a gate that is off needs none: /255 and the
@@ -496,9 +447,8 @@ def bn_kernel_phase(torch):
     against a float64 sum (1e-5 of the terms' magnitudes), y bit for bit
     and dx within 1 bf16 ulp given the kernel's statistics; then each
     kernel timed beside its bound (its bf16 bytes once each way at 3.35
-    TB/s), its twin, and the eager autograd chain the kernels replaced."""
+    TB/s) and its twin."""
     from tdeed_tpu_torch.kernels import batchnorm as bn
-    from tdeed_tpu_torch.models.common import batch_stats, bn_fold
     from tdeed_tpu_torch.utils.profiling import PEAK_BYTES_PER_S
 
     dev = torch.device("cuda")
@@ -558,13 +508,6 @@ def bn_kernel_phase(torch):
                                                              rows),
         }
 
-        def chain():
-            xr = x.detach().requires_grad_(True)
-            wr, br = weight.detach().requires_grad_(True), bias.detach().requires_grad_(True)
-            mean, var = batch_stats(xr)
-            a, b = bn_fold(mean, var, wr, br, 1e-5, xr)
-            torch.relu(xr * a + b).backward(gy)
-
         row = {"shape": [n, c, h, w], "sum_rel_err": sum_err, "kernels": {}}
         for k, fn in kernels.items():
             ms = _time_ms(torch, fn, 20)
@@ -574,15 +517,13 @@ def bn_kernel_phase(torch):
         row["ms"] = sum(v["ms"] for v in row["kernels"].values())
         row["bound_ms"] = 16 * x.numel() / PEAK_BYTES_PER_S * 1e3
         row["twin_ms"] = sum(v["twin_ms"] for v in row["kernels"].values())
-        row["eager_chain_ms"] = _time_ms(torch, chain, 3)
         out["cells"][cell] = row
         log(f"[bn] {cell} stem {(n, c, h, w)} bf16 + ReLU: sums within {sum_err:.2e} of "
             f"float64, y bit for bit; " + "; ".join(
                 f"{k} {v['ms']:.3f} ms ({v['bound_ms'] / v['ms']:.0%} of {v['bound_ms']:.3f}), "
                 f"twin {v['twin_ms']:.3f}" for k, v in row["kernels"].items())
             + f"; all four {row['ms']:.3f} ms against {row['bound_ms']:.3f} ms of bound "
-            f"({row['bound_ms'] / row['ms']:.0%}), the twins {row['twin_ms']:.3f}, the eager "
-            f"autograd chain {row['eager_chain_ms']:.3f}")
+            f"({row['bound_ms'] / row['ms']:.0%}), the twins {row['twin_ms']:.3f}")
         del x, gy
         torch.cuda.empty_cache()
     return out
@@ -1713,7 +1654,6 @@ def checkpoint_phase(torch, smi):
         fail("checkpoint_backbone changed the running statistics or the BN counters")
     if not p1 < p0:
         fail("checkpoint_backbone did not lower the step's peak memory")
-    return {"off": (ms0, p0), "on": (ms1, p1)}
 
 
 def export_phase(torch, smi):
@@ -2507,423 +2447,6 @@ def host_tools_phase(torch, smi, cfg, state_dict, phase7, phase5b):
             return tools_phase(torch, smi, state_dict, config, data_root, root)
 
 
-class _FusedCounts:
-    """Within, counts the calls of each fused trunk unit the model makes
-    (models/regnet.py calls them by these names)."""
-
-    NAMES = {"entry": "fused_block", "shift": "fused_shift_block",
-             "conv1": "fused_conv_bn_relu"}
-
-    def __enter__(self):
-        from tdeed_tpu_torch.models import regnet
-
-        self.regnet = regnet
-        self.calls = {k: 0 for k in self.NAMES}
-        self.saved = {k: getattr(regnet, fn) for k, fn in self.NAMES.items()}
-        for k, fn in self.NAMES.items():
-            def counted(*a, _k=k, _f=self.saved[k], **kw):
-                self.calls[_k] += 1
-                return _f(*a, **kw)
-            setattr(regnet, fn, counted)
-        return self.calls
-
-    def __exit__(self, *exc):
-        for k, fn in self.NAMES.items():
-            setattr(self.regnet, fn, self.saved[k])
-
-
-def _units_per_step(model):
-    """The fused unit calls one forward of ``model``'s trunk makes with both
-    knobs on: the 2 entry units, each stride-2 shift block, each stride-1
-    block's conv1."""
-    from tdeed_tpu_torch.models.regnet import YBlock
-    from tdeed_tpu_torch.models.shift import GatedShift
-
-    blocks = [m for m in model.modules() if isinstance(m, YBlock)]
-    shift = sum(1 for b in blocks if b.stride == 2 and isinstance(b.conv1, GatedShift))
-    return {"entry": 2, "shift": shift, "conv1": sum(1 for b in blocks if b.stride == 1)}
-
-
-def _unit_cases(torch):
-    """Phase 12a's units at FineDiving_small's widths (rny002: stem 32,
-    stages 24, 56, 152, 368, groups of 8; GSF over clips of FUSED_CLIP) and
-    frames (FUSED_FRAME), each as (name, modules, input shape, fused
-    forward, plain forward)."""
-    from tdeed_tpu_torch.models import regnet
-
-    n, f, clip = FUSED_CLIPS * FUSED_CLIP, FUSED_FRAME, FUSED_CLIP
-    nn = torch.nn
-
-    def entry(stem):
-        return lambda m, x: regnet._fused_entry(m["stem"] if stem else None, m["blk"], x)
-
-    def block(fuse):
-        def run(m, x):
-            m["blk"].fuse = fuse
-            return m["blk"](x)
-        return run
-
-    return [
-        ("stem + s1_b1 (FusedBlock with the stem)",
-         nn.ModuleDict({"stem": regnet.ConvBN(3, 32, 3, stride=2),
-                        "blk": regnet.YBlock(32, 24, 2, 8)}),
-         (n, 3, f, f), entry(True), lambda m, x: m["blk"](m["stem"](x))),
-        ("s2_b1 (FusedBlock)", nn.ModuleDict({"blk": regnet.YBlock(24, 56, 2, 8)}),
-         (n, 24, f // 4, f // 4), entry(False), lambda m, x: m["blk"](x)),
-        ("s3_b1 gsf (FusedShiftBlock)",
-         nn.ModuleDict({"blk": regnet.YBlock(56, 152, 2, 8, "gsf", clip)}),
-         (n, 56, f // 8, f // 8), block(True), block(False)),
-        ("s3_b2 gsf (FusedConvBNReLU)",
-         nn.ModuleDict({"blk": regnet.YBlock(152, 152, 1, 8, "gsf", clip)}),
-         (n, 152, f // 16, f // 16), block(True), block(False)),
-    ]
-
-
-def _bf16_leaf(torch, got, want):
-    """(entries off, share off, median ratio, passes) under FUSED_BF16_*."""
-    g, w = got.double().flatten(), want.double().flatten()
-    scale = float(w.abs().max()) or 1.0
-    g, w = g / scale, w / scale
-    off = int(((g - w).abs() > FUSED_BF16_TOL * (1 + w.abs())).sum())
-    sel = w.abs() > 0.1 * float(w.abs().max()) + 1e-6
-    ratio = float((g[sel] / w[sel]).median()) if bool(sel.any()) else float("nan")
-    ok = off == 0 or (off <= max(1, int(FUSED_BF16_SHARE * w.numel()))
-                      and abs(ratio - 1.0) < FUSED_BF16_RATIO)
-    return off, off / w.numel(), ratio, ok
-
-
-def _run_unit(torch, fn, mods, x, w=None):
-    """(out, state_dict, gradients by name with the input's under 'input',
-    w) of ``fn`` on a copy of ``mods`` in train mode under the loss
-    sum(out * w); without ``w`` one is drawn from a seed."""
-    import copy
-
-    m = copy.deepcopy(mods).train()
-    xt = x.clone().requires_grad_(True)
-    out = fn(m, xt)
-    if w is None:
-        w = torch.randn(out.shape, generator=torch.Generator().manual_seed(SEED)).cuda()
-    (out.float() * w).sum().backward()
-    grads = {k: p.grad for k, p in m.named_parameters()}
-    grads["input"] = xt.grad
-    return out.detach(), m.state_dict(), grads, w
-
-
-@contextlib.contextmanager
-def _eager_bn(torch):
-    """Within, SplitBatchNorm trains through the eager op sequence the
-    fused units reproduce (``batch_stats``, ``record``, ``bn_fold``,
-    ``x * a + b``, ReLU, differentiated by autograd), not through its
-    kernels, whose sums run in another order."""
-    from tdeed_tpu_torch.models import common
-
-    def forward(self, x):
-        if not self.training:
-            return kernel_forward(self, x)
-        mean, var = common.batch_stats(x, self.process_group)
-        self.record(mean, var)
-        a, b = common.bn_fold(mean, var, self.weight, self.bias, self.eps, x)
-        y = x * a + b
-        return torch.relu(y) if self.relu else y
-
-    kernel_forward = common.SplitBatchNorm.forward
-    common.SplitBatchNorm.forward = forward
-    try:
-        yield
-    finally:
-        common.SplitBatchNorm.forward = kernel_forward
-
-
-def fused_agreement_phase(torch, smi):
-    """Phase 12a: each fused unit against the port's plain modules on the
-    card, same weights (BN parameters ramped by +0.05, as the CPU tests)
-    and inputs: fp32 and bf16 (fp32 parameters, as in the model), the
-    BatchNorms on the eager op sequence the units reproduce (``_eager_bn``,
-    the GSF gates' inside a fused shift unit too: in fp32 the kernels'
-    other summation order moves these ill-conditioned gradients by 1e-4 to
-    1e-3 of their largest entries, as far as either path lies from
-    float64). The forward and the statistics bit for bit (else logged and
-    held to the gradients' bound); the gradients of every parameter and of
-    the input within FUSED_FP32_LEAF (fp32) or the FUSED_BF16_* criterion
-    (bf16), or within FUSED_FLOOR_RATIO times the plain modules' own
-    rerun. Then each unit's forward + backward timed in bf16, fused and
-    plain (on the kernels)."""
-    import copy
-
-    gen = torch.Generator().manual_seed(SEED + 12)
-    for name, mods, shape, fused, plain in _unit_cases(torch):
-        with torch.no_grad():
-            for p in mods.parameters():
-                p.add_(0.05 * torch.arange(p.numel(), dtype=p.dtype).reshape(p.shape)
-                       / p.numel())
-        mods = mods.cuda()
-        x32 = torch.randn(shape, generator=gen).cuda().contiguous(
-            memory_format=torch.channels_last)
-        times = {}
-        for dtype in (torch.float32, torch.bfloat16):
-            x = x32.to(dtype)
-            with _eager_bn(torch):
-                po, ps, pg, w = _run_unit(torch, plain, mods, x)
-                rerun = _run_unit(torch, plain, mods, x, w)[2]
-                fo, fs, fg, _ = _run_unit(torch, fused, mods, x, w)
-            same_out = torch.equal(fo, po)
-            same_stats = all(torch.equal(fs[k], ps[k]) for k in ps)
-            leaves = dict(pg, output=po) if not same_out else pg
-            got = dict(fg, output=fo)
-            worst, notes = 0.0, []
-            for k, want in leaves.items():
-                g = got[k]
-                dist = float((g - want).abs().max())
-                noise = float((rerun[k] - want).abs().max()) if k in rerun else 0.0
-                if dtype == torch.float32:
-                    err = dist / max(float(want.abs().max()), 1e-30)
-                    worst = max(worst, err)
-                    ok = err < FUSED_FP32_LEAF
-                    what = f"{err:.3e} of its largest entry"
-                else:
-                    off, share, ratio, ok = _bf16_leaf(torch, g, want)
-                    what = f"{off} of {want.numel()} entries off, median ratio {ratio:.5f}"
-                if not ok and dist <= FUSED_FLOOR_RATIO * noise:
-                    notes.append(f"{k}: {what}, within {FUSED_FLOOR_RATIO:g}x the plain "
-                                 f"modules' own rerun ({dist:.3g} against {noise:.3g})")
-                elif not ok:
-                    fail(f"12a {name} {str(dtype)[6:]}: {k}: {what} from the plain modules' "
-                         f"(their own rerun {noise:.3g} away)")
-                elif dtype == torch.bfloat16 and off:
-                    notes.append(f"{k}: {what}")
-            if not same_stats:
-                for k in ps:
-                    if ps[k].is_floating_point():
-                        err = float((fs[k] - ps[k]).abs().max())
-                        if not err <= 1e-5 + 2e-5 * float(ps[k].abs().max()):
-                            fail(f"12a {name} {dtype}: the running statistic {k} is {err:.3e} "
-                                 f"from the plain modules'")
-                    elif not torch.equal(fs[k], ps[k]):
-                        fail(f"12a {name}: {k} {fs[k]} against {ps[k]}")
-            worst_leaf = (f"worst gradient leaf {worst:.2e} of its largest entry; "
-                          if dtype == torch.float32 else "")
-            log(f"[fused] 12a {name}, input {tuple(shape)} {str(dtype)[6:]}: forward bit for "
-                f"bit {same_out}, running statistics bit for bit {same_stats}; {worst_leaf}"
-                f"leaves with entries off the bound: {'; '.join(notes) or 'none'}")
-            if dtype == torch.bfloat16:
-                for tag, fn in (("fused", fused), ("plain", plain)):
-                    m = copy.deepcopy(mods).train()
-                    xt = x.clone().requires_grad_(True)
-
-                    def fwd_bwd(m=m, fn=fn, xt=xt):
-                        (fn(m, xt).float() * w).sum().backward()
-
-                    times[tag] = _time_ms(torch, fwd_bwd, FUSED_UNIT_ITERS)
-                    del m
-        log(f"[fused] 12a {name}: bf16 forward + backward {times['fused']:.3f} ms fused, "
-            f"{times['plain']:.3f} ms plain ({times['fused'] / times['plain']:.1%}); {smi}")
-        del mods
-        torch.cuda.empty_cache()
-
-
-def _steps(torch, step, batch, n, what):
-    """n train steps on ``batch``: (losses, step ms, peak GiB, photometric
-    launches), the peak over the n steps; each step must launch K1 once
-    per micro-batch."""
-    from tdeed_tpu_torch.kernels.augment import photometric
-
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    losses, times = [], []
-    before = photometric.launches
-    for _ in range(n):
-        t0 = time.perf_counter()
-        losses.append(float(step(batch)["loss"]))
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - t0) * 1e3)
-    launches = photometric.launches - before
-    if launches != n * step.acc_grad_iter:
-        fail(f"{what}: {n} steps launched the photometric kernel {launches} times")
-    if not all(map(math.isfinite, losses)):
-        fail(f"{what}: non-finite loss {losses}")
-    return losses, times, torch.cuda.max_memory_allocated() / 2**30, launches
-
-
-def fused_flagship_phase(torch, smi):
-    """Phase 12b: FUSED_STEPS flagship steps (FineDiving_small at full
-    width) with fuse_entry and fuse_shift on, then as many plain, same
-    weights, batch and draws: step times, peak memory, step 0's loss.
-    Returns the photometric launches."""
-    import dataclasses
-    import statistics
-
-    from tdeed_tpu_torch import load_config
-
-    cfg = load_config("FineDiving_small", config_root=CONFIGS)
-    gen = torch.Generator(device="cuda").manual_seed(SEED + 12)
-    batch = _batch(torch, cfg.batch_size, cfg.clip_len, FRAME, cfg.num_classes_bg, gen, "cuda")
-    runs, launches = {}, 0
-    for fuse in (True, False):
-        c = dataclasses.replace(cfg, fuse_entry=fuse, fuse_shift=fuse)
-        model, step = _trainer(torch, c, "cuda", c.crop_dim, SEED)
-        with _FusedCounts() as calls:
-            losses, times, peak, k1 = _steps(torch, step, batch, FUSED_STEPS,
-                                             f"12b fuse {fuse}")
-        launches += k1
-        want = ({k: FUSED_STEPS * v for k, v in _units_per_step(model).items()} if fuse
-                else {k: 0 for k in calls})
-        if calls != want:
-            fail(f"12b fuse {fuse}: fused unit calls {calls}, not {want}")
-        runs[fuse] = (losses, times, peak, dict(calls))
-        del model, step
-        torch.cuda.empty_cache()
-    (l1, t1, p1, calls), (l0, t0, p0, _) = runs[True], runs[False]
-    rel = abs(l1[0] - l0[0]) / abs(l0[0])
-    ms1, ms0 = statistics.median(t1[1:]), statistics.median(t0[1:])
-    n = cfg.batch_size * cfg.clip_len
-    log(f"[fused] 12b FineDiving_small ({cfg.feature_arch}, batch {cfg.batch_size} x clip "
-        f"{cfg.clip_len}, {FRAME}^2 uint8 -> {cfg.crop_dim}, mixup, {cfg.dtype}), "
-        f"{FUSED_STEPS} steps each: knobs on: losses {', '.join(f'{v:.6f}' for v in l1)}, "
-        f"steps {', '.join(f'{v:.1f}' for v in t1)} ms, median after the first {ms1:.1f} ms "
-        f"({n / ms1 * 1e3:.0f} frames/s), peak {p1:.2f} GiB, unit calls {calls}; off: losses "
-        f"{', '.join(f'{v:.6f}' for v in l0)}, steps {', '.join(f'{v:.1f}' for v in t0)} ms, "
-        f"median after the first {ms0:.1f} ms ({n / ms0 * 1e3:.0f} frames/s), peak "
-        f"{p0:.2f} GiB; on/off: step {ms1 / ms0:.1%}, peak {p1 / p0:.1%}; step-0 loss rel "
-        f"{rel:.2e} (equal bits {l1[0] == l0[0]}); one photometric launch a step; {smi}")
-    if not rel <= BF16_EPS:
-        fail(f"12b: the knobs moved step 0's loss by {rel:.2e}")
-    return launches
-
-
-def fused_snb_phase(torch, smi, ckpt9b):
-    """Phase 12c: the SoccerNetBall_challenge2 step alone at full frames:
-    FUSED_STEPS steps with the knobs off and as many on, then one step
-    with the knobs and checkpoint_backbone on, same weights, batch and
-    draws; beside phase 9b's checkpoint_backbone numbers (``ckpt9b``).
-    Returns the photometric launches."""
-    import dataclasses
-    import statistics
-
-    from tdeed_tpu_torch import load_config
-    from tdeed_tpu_torch.models.tdeed import build_model, two_heads_for
-    from tdeed_tpu_torch.train.schedule import make_optimizer
-    from tdeed_tpu_torch.train.step import make_train_step
-
-    cfg = load_config("SoccerNetBall_challenge2", config_root=CONFIGS)
-    two_heads = two_heads_for(cfg)
-    batch = _snb_batch(torch, cfg, two_heads)
-    torch.manual_seed(SEED)
-    start, runs, launches = None, {}, 0
-    settings = (("off", False, False, FUSED_STEPS), ("on", True, False, FUSED_STEPS),
-                ("on + checkpoint_backbone", True, True, 1))
-    for tag, fuse, ck, n in settings:
-        c = dataclasses.replace(cfg, fuse_entry=fuse, fuse_shift=fuse, checkpoint_backbone=ck)
-        model = build_model(c, two_heads, device="cuda")
-        if start is None:
-            start = {k: v.clone() for k, v in model.state_dict().items()}
-        model.load_state_dict(start)
-        opt, sched = make_optimizer(model.parameters(), cfg.learning_rate, 3, 30)
-        step = make_train_step(
-            model, opt, sched, crop_dim=cfg.crop_dim, num_classes_bg=cfg.num_classes_bg,
-            mixup=cfg.mixup, radi_displacement=cfg.radi_displacement, seed=SEED,
-        )
-        with _FusedCounts() as calls:
-            losses, times, peak, k1 = _steps(torch, step, batch, n, f"12c {tag}")
-        launches += k1
-        # with checkpoint_backbone the backward runs each unit's forward again
-        if calls["entry"] != 2 * n * fuse * (1 + ck):
-            fail(f"12c {tag}: fused unit calls {calls}")
-        stats = {k: v.clone() for k, v in model.state_dict().items()
-                 if k.endswith(("running_mean", "running_var", "num_batches_tracked"))}
-        runs[tag] = (losses, times, peak, stats)
-        del model, opt, sched, step
-        torch.cuda.empty_cache()
-    (l0, t0, p0, _), (l1, t1, p1, _), (l2, t2, p2, s2) = (runs[t] for t, *_ in settings)
-    ms0, ms1 = statistics.median(t0[1:]), statistics.median(t1[1:])
-    rel1, rel2 = abs(l1[0] - l0[0]) / abs(l0[0]), abs(l2[0] - l1[0]) / abs(l1[0])
-    counters = {int(v) for k, v in s2.items() if k.endswith("num_batches_tracked")}
-    (cms0, cp0), (cms1, cp1) = ckpt9b["off"], ckpt9b["on"]
-    log(f"[fused] 12c {cfg.feature_arch}, batch {cfg.batch_size} x clip {cfg.clip_len} of "
-        f"{SNB_FRAME[0]}x{SNB_FRAME[1]}, {cfg.dtype}, two heads {two_heads}: knobs off: "
-        f"steps {', '.join(f'{v:.1f}' for v in t0)} ms, median after the first {ms0:.1f} ms, "
-        f"peak {p0:.2f} GiB; knobs on: steps {', '.join(f'{v:.1f}' for v in t1)} ms, median "
-        f"after the first {ms1:.1f} ms ({ms1 / ms0:.1%} of off), peak {p1:.2f} GiB "
-        f"({p1 / p0:.1%} of off), step-0 loss rel {rel1:.2e} (equal bits {l1[0] == l0[0]}); "
-        f"knobs and checkpoint_backbone on, one step: {t2[0]:.1f} ms (the first step), peak "
-        f"{p2:.2f} GiB ({p2 / p0:.1%} of off), loss rel {rel2:.2e} to the knobs alone, BN "
-        f"counters {sorted(counters)}; phase 9b in this run: checkpoint_backbone off "
-        f"{cms0:.1f} ms, {cp0:.2f} GiB, on {cms1:.1f} ms, {cp1:.2f} GiB; {smi}")
-    if not (rel1 <= BF16_EPS and rel2 <= 1e-3):
-        fail(f"12c: the knobs moved step 0's loss by {rel1:.2e}, checkpoint_backbone with "
-             f"them by {rel2:.2e}")
-    if counters != {1}:
-        fail(f"12c: checkpoint_backbone with the knobs counted BN batches {sorted(counters)}")
-    return launches
-
-
-def fused_cli_phase(torch, smi):
-    """Phase 12d: python -m tdeed_tpu_torch.cli.train, in process, over a
-    phase-7 dataset with phase 7's config plus fuse_entry and fuse_shift,
-    1 epoch: a finite loss, checkpoint_last, the test tail, one
-    photometric launch and the entry units once per optimizer step.
-    Returns the launches."""
-    import tempfile
-
-    import numpy as np
-
-    from tdeed_tpu_torch import load_config
-    from tdeed_tpu_torch.cli import train as train_cli
-    from tdeed_tpu_torch.data import frames as frame_io
-    from tdeed_tpu_torch.kernels.augment import photometric
-
-    load = _TimedLoad()
-    get_decoder = frame_io.get_decoder
-    frame_io.get_decoder = lambda kind="auto": load
-    try:
-        with tempfile.TemporaryDirectory(dir=REPO / "build") as root:
-            frame_dir, data_root = _write_cli_dataset(root, np.random.default_rng(SEED + 5))
-            config_root, _ = _write_phase_config(root, frame_dir, store_mode="store",
-                                                 num_epochs=1, fuse_entry=True,
-                                                 fuse_shift=True)
-            argv = ["--model", "FineDiving_small", "--config_root", config_root,
-                    "--data_root", data_root, "--no_wandb"]
-            try:
-                train_cli.main(argv)
-                fail("store mode did not exit")
-            except SystemExit as e:
-                if e.code not in (0, None):
-                    fail(f"store mode exited with {e.code}")
-            _write_phase_config(root, frame_dir, store_mode="load", num_epochs=1,
-                                fuse_entry=True, fuse_shift=True)
-            cfg = load_config("FineDiving_small", config_root)
-            before = photometric.launches
-            t0 = time.perf_counter()
-            with _FusedCounts() as calls:
-                stats = train_cli.main(argv)
-            wall = time.perf_counter() - t0
-            launches = photometric.launches - before
-            steps = stats["end_step"]
-            if not (cfg.fuse_entry and cfg.fuse_shift and
-                    steps == cfg.dataset_len // cfg.batch_size):
-                fail(f"12d ran {steps} steps of config {cfg.fuse_entry}, {cfg.fuse_shift}")
-            if launches != steps or calls["entry"] != 2 * steps:
-                fail(f"12d: {steps} steps launched the photometric kernel {launches} times "
-                     f"and called the fused units {calls}")
-            files = sorted(os.listdir(cfg.save_dir))
-            # val mAP (and checkpoint_best) from epoch start_val_epoch = 1 on
-            for name in ("checkpoint_last", "train_meta.json", "results_test.json"):
-                if name not in files:
-                    fail(f"12d did not write {name}: {files}")
-            with open(os.path.join(cfg.save_dir, "train_meta.json")) as fp:
-                history = json.load(fp)["history"]
-            losses = [r[k] for r in history for k in ("train", "val")]
-            if not losses or not all(map(math.isfinite, losses)):
-                fail(f"12d: non-finite loss {losses}")
-            _epoch_lines(cfg, stats, smi, tag="fused")
-            log(f"[fused] 12d cli.train over the phase-7 dataset with fuse_entry and "
-                f"fuse_shift: 1 epoch of {steps} steps in {wall:.1f} s, losses "
-                f"{', '.join(f'{v:.4f}' for v in losses)}, {launches} photometric launches, "
-                f"fused unit calls {calls}, wrote {', '.join(files)}; {smi}")
-            return launches
-    finally:
-        frame_io.get_decoder = get_decoder
-
-
 def _measured(result, text, what, smi, zero_ok=("ms_by_region",)):
     """The tool's printed JSON line (the last line of its output) parses,
     equals what its main returned, names phase 1's card, and every number
@@ -2955,7 +2478,7 @@ def _measured(result, text, what, smi, zero_ok=("ms_by_region",)):
 
 
 def measure_tools_phase(torch, smi, k1):
-    """13: the measuring tools in process at reduced counts: the bench
+    """12: the measuring tools in process at reduced counts: the bench
     (3 + 10 flagship steps, 2 + 3 SoccerNet Ball steps), bench_snb's k1
     and plain variants at acc_grad_iter 2 (2 + 3 steps), bench_input on
     120 frames, profile_step with a trace of 3 steps, profile_infer at the
@@ -2973,11 +2496,11 @@ def measure_tools_phase(torch, smi, k1):
 
     t0 = time.perf_counter()
     launches = photometric.launches
-    res, text, sec = _tool(bench.main, ["--snb_warmup", "2", "--snb_steps", "3"], "13 bench")
-    out = _measured(res, text, "13 bench", smi)
+    res, text, sec = _tool(bench.main, ["--snb_warmup", "2", "--snb_steps", "3"], "12 bench")
+    out = _measured(res, text, "12 bench", smi)
     for key, want in (("train_k1_launches_per_step", 1), ("snb_k1_launches_per_step", 2)):
         if out[key] != want:
-            fail(f"13 bench: {key} = {out[key]}, not {want}")
+            fail(f"12 bench: {key} = {out[key]}, not {want}")
     log(f"[tools] bench ({sec:.1f} s): train {out['train_frames_per_sec']['median']:.1f} "
         f"frames/s (median of {out['train_frames_per_sec']['n']}, min "
         f"{out['train_frames_per_sec']['min']:.1f}, max {out['train_frames_per_sec']['max']:.1f}), "
@@ -2991,11 +2514,11 @@ def measure_tools_phase(torch, smi, k1):
     torch.cuda.empty_cache()
 
     argv = ["--variants", "k1,plain", "--acc", "2", "--warmup", "2", "--steps", "3"]
-    res, text, sec = _tool(bench_snb.main, argv, "13 bench_snb")
-    out = _measured(res, text, "13 bench_snb", smi,
+    res, text, sec = _tool(bench_snb.main, argv, "12 bench_snb")
+    out = _measured(res, text, "12 bench_snb", smi,
                     zero_ok=("ms_by_region", "k1_launches_per_step"))
     if out["k1"]["k1_launches_per_step"] != 2 or out["plain"]["k1_launches_per_step"] != 0:
-        fail(f"13 bench_snb: K1 launches a step {out['k1']['k1_launches_per_step']} (k1), "
+        fail(f"12 bench_snb: K1 launches a step {out['k1']['k1_launches_per_step']} (k1), "
              f"{out['plain']['k1_launches_per_step']} (plain); want 2 and 0")
     log(f"[tools] bench_snb acc 2 ({sec:.1f} s): " + "; ".join(
         f"{v} {out[v]['step_ms']['median']:.1f} ms ({out[v]['frames_per_sec']:.1f} frames/s, "
@@ -3004,22 +2527,22 @@ def measure_tools_phase(torch, smi, k1):
     torch.cuda.empty_cache()
 
     res, text, sec = _tool(bench_input.main, ["--frames", "120", "--batches", "3"],
-                           "13 bench_input")
+                           "12 bench_input")
     try:
         printed = json.loads(text.strip().splitlines()[-1])
     except (IndexError, json.JSONDecodeError) as e:
-        fail(f"13 bench_input: its last line is not JSON ({e})")
+        fail(f"12 bench_input: its last line is not JSON ({e})")
     bad = {k: v for k, v in printed.items() if isinstance(v, (int, float))
            and not (math.isfinite(v) and v > 0)}
     if bad or printed != json.loads(json.dumps(res)):
-        fail(f"13 bench_input: {bad or 'printed JSON differs from the result'}")
+        fail(f"12 bench_input: {bad or 'printed JSON differs from the result'}")
     log(f"[tools] bench_input ({sec:.1f} s): " + ", ".join(
         f"{k} {v:.1f}" for k, v in printed.items() if k.startswith(("decode", "pipeline"))))
 
     with tempfile.TemporaryDirectory() as logdir:
         res, text, sec = _tool(profile_step.main, ["--trace", logdir, "--iters", "5"],
-                               "13 profile_step")
-    out = _measured(res, text, "13 profile_step", smi,
+                               "12 profile_step")
+    out = _measured(res, text, "12 profile_step", smi,
                     zero_ok=("ms_by_region", "host_cpu_ms_by_region", "dropped"))
     tr = out["trace"]
     k1_op = tr["ms_by_op"].get(tr["k1_kernel"]) if tr["k1_kernel"] else None
@@ -3027,11 +2550,11 @@ def measure_tools_phase(torch, smi, k1):
     # record): K1's kernel once a step, as the wrapper counted
     if (k1_op is None or tr["dropped"] != 0
             or not k1_op["calls"] == tr["k1_launches"] == tr["steps"]):
-        fail(f"13 profile_step: K1's kernel {tr['k1_kernel']} with {k1_op} in the trace "
+        fail(f"12 profile_step: K1's kernel {tr['k1_kernel']} with {k1_op} in the trace "
              f"of {tr['steps']} steps ({tr['k1_launches']} launches counted, "
              f"{tr['dropped']} of {tr['launches']} launches without a device record)")
     if tr["ms_by_region"]["K1"] < k1_op["ms"]:
-        fail(f"13 profile_step: the K1 region holds {tr['ms_by_region']['K1']} ms of device "
+        fail(f"12 profile_step: the K1 region holds {tr['ms_by_region']['K1']} ms of device "
              f"time, less than K1's kernel's {k1_op['ms']} ms: its launch is not linked")
     k1["in_step_ms"] = k1_op["ms"] / k1_op["calls"]
     log(f"[tools] profile_step ({sec:.1f} s): " + "; ".join(
@@ -3047,17 +2570,17 @@ def measure_tools_phase(torch, smi, k1):
     torch.cuda.empty_cache()
 
     argv = ["--snb", "--batches", "4", "--agg", "--iters", "5"]
-    res, text, sec = _tool(profile_infer.main, argv, "13 profile_infer")
-    out = _measured(res, text, "13 profile_infer", smi)
+    res, text, sec = _tool(profile_infer.main, argv, "12 profile_infer")
+    out = _measured(res, text, "12 profile_infer", smi)
     if out["agg"]["equal_bits"] is not True:
-        fail("13 profile_infer: device and host aggregation differ")
+        fail("12 profile_infer: device and host aggregation differ")
     log(f"[tools] profile_infer ({sec:.1f} s): flagship predict "
         f"{out['predict']['frames_per_sec']:.1f} frames/s; SoccerNet Ball b4 "
         f"{out['snb']['b4']['frames_per_sec']:.1f} frames/s; {out['agg']['windows']} windows: "
         f"device aggregation {out['agg']['device_agg_s']:.2f} s, host "
         f"{out['agg']['host_agg_s']:.2f} s, the same bits; {smi}")
     torch.cuda.empty_cache()
-    log(f"[tools] phase 13: {time.perf_counter() - t0:.1f} s")
+    log(f"[tools] phase 12: {time.perf_counter() - t0:.1f} s")
     return photometric.launches - launches
 
 
@@ -3102,7 +2625,7 @@ def main() -> int:
     agreement_phase(torch, feature_arch="rny002_gsm")
     photometric.launches = 0
     trunks_phase(torch, smi)
-    ckpt9b = checkpoint_phase(torch, smi)
+    checkpoint_phase(torch, smi)
     phase9_launches = photometric.launches
     if phase9_launches != PHASE9_STEPS * (len(PHASE9_ARCHS) + 2):  # 9a, 9b off and on
         fail(f"phase 9 launched the photometric kernel {phase9_launches} times")
@@ -3131,23 +2654,12 @@ def main() -> int:
     bn_marks.append(("phase 11 (cli.train from JPEG frames, tools.overfit_check)",
                      bn_launches()))
     torch.cuda.empty_cache()
-    fused_agreement_phase(torch, smi)
     photometric.launches = 0
-    phase12_launches = fused_flagship_phase(torch, smi)
-    phase12_launches += fused_snb_phase(torch, smi, ckpt9b)
-    phase12_launches += fused_cli_phase(torch, smi)
+    phase12_launches = measure_tools_phase(torch, smi, k1)
     if phase12_launches != photometric.launches:
         fail(f"phase 12 counted {phase12_launches} photometric launches of "
              f"{photometric.launches}")
-    bn_marks.append(("phase 12 (the fused units' agreement, flagship and SoccerNet Ball "
-                     "steps, cli.train)", bn_launches()))
-    torch.cuda.empty_cache()
-    photometric.launches = 0
-    phase13_launches = measure_tools_phase(torch, smi, k1)
-    if phase13_launches != photometric.launches:
-        fail(f"phase 13 counted {phase13_launches} photometric launches of "
-             f"{photometric.launches}")
-    bn_marks.append(("phase 13 (the measuring tools)", bn_launches()))
+    bn_marks.append(("phase 12 (the measuring tools)", bn_launches()))
     bn["launches_by_path"] = {
         label: {k: now[k] - before[k] for k in now}
         for (_, before), (label, now) in zip(bn_marks, bn_marks[1:])}
@@ -3156,7 +2668,7 @@ def main() -> int:
         fail(f"a training path launched no BatchNorm kernel: {bn['launches_by_path']}")
     log(f"[bn] launches by path: {json.dumps(bn['launches_by_path'])}")
     k1["launches"] = (flagship_launches + snb_launches + phase9_launches + phase10_launches
-                      + phase11_launches + phase12_launches + phase13_launches)
+                      + phase11_launches + phase12_launches)
     k1["launches_by_path"] = {"phases 5-7 (FineDiving_small)": flagship_launches,
                               "phase 8 (SoccerNetBall_challenge2)": snb_launches,
                               "phase 9 (GSM and plain trunks, checkpoint_backbone)":
@@ -3165,10 +2677,8 @@ def main() -> int:
                               "cli.train --distributed)": phase10_launches,
                               "phase 11 (cli.train from JPEG frames, tools.overfit_check)":
                                   phase11_launches,
-                              "phase 12 (fuse_entry and fuse_shift: flagship steps on and "
-                              "off, SoccerNet Ball steps, cli.train)": phase12_launches,
-                              "phase 13 (the measuring tools: bench, bench_snb, "
-                              "profile_step)": phase13_launches}
+                              "phase 12 (the measuring tools: bench, bench_snb, "
+                              "profile_step)": phase12_launches}
     k1["max_abs_err"] = max(k1["max_abs_err"], snb["step_max_abs_err"])
     k1.update({f"snb_{k}": v for k, v in snb.items()})
 

@@ -6,8 +6,10 @@ packages (held equal by tests/test_torch_config.py). Fields that only the
 JAX package reads (mesh axis, Orbax backbone checkpoint) stay, so that a
 config round-trips unchanged; the port raises for the values it cannot
 build (models/tdeed.py:check_supported). The fused-block knobs
-(``fuse_entry``, ``fuse_shift``) route the port's trunk as they route the
-JAX package's (models/regnet.py, kernels/fused_block.py).
+(``fuse_entry``, ``fuse_shift``) are such fields too: in the JAX package
+they choose how XLA schedules the same trunk function, which the port's
+trunk computes without them, so a config that sets them builds the same
+port model. The port's memory knob is ``checkpoint_backbone``.
 
 The reference merges ``config/<Dataset>/<Dataset>_<name>.json`` onto an
 argparse namespace (ref: train_tdeed.py:45-77, config/README.md:3-29). Here
@@ -109,8 +111,8 @@ class TDEEDConfig:
     dtype: str = "bfloat16"  # compute dtype; params stay float32
     data_axis: str = "data"  # mesh axis name for data parallelism
     checkpoint_backbone: bool = False  # jax.checkpoint the backbone (remat)
-    fuse_entry: bool = False  # fused custom-VJP entry blocks (kernels/fused_block.py)
-    fuse_shift: bool = False  # fused stride-2 shift blocks (s3_b1/s4_b1)
+    fuse_entry: bool = False  # JAX package only: fused custom-VJP entry blocks
+    fuse_shift: bool = False  # JAX package only: fused stride-2 shift blocks (s3_b1/s4_b1)
     pallas_augment: Optional[bool] = None  # fused photometric kernel (None=auto)
     decoder: str = "auto"  # 'auto' | 'native' | 'pil' | 'cv2'
     # Decoded-frame LRU budget (MiB/host, 0 = off). Clips resample from a

@@ -4,8 +4,8 @@
 //
 // Replaces no TPU kernel: the JAX package leaves this chain to XLA, which
 // fuses it into about two passes. Eager PyTorch ran it as ~18 full-tensor
-// passes and ~50 launches a BatchNorm a step (models/common.py's
-// _BatchMoments + bn_fold + x * a + b + relu, differentiated by autograd).
+// passes and ~50 launches a BatchNorm a step (fp32 moments, bn_fold,
+// x * a + b and relu, differentiated by autograd).
 //
 // Bound: bytes. The work reads x once for the moments, x once and writes y
 // once for the normalisation (6 bytes an element in bf16), reads x and the
@@ -90,8 +90,8 @@ __device__ __forceinline__ float masked(float g, float x, float a, float b) {
   return z <= 0.f ? 0.f : g;
 }
 
-// dx = dz * a + cast(x * k1 + k0) with _bn_bwd's roundings
-// (kernels/fused_block.py), dz the masked cotangent
+// dx = dz * a + cast(x * k1 + k0) with the roundings of
+// kernels/batchnorm.py's _bn_bwd_coeffs, dz the masked cotangent
 template <typename T, bool RELU>
 __device__ __forceinline__ float input_grad(float g, float x, float a, float b, float k0,
                                             float k1) {

@@ -18,8 +18,7 @@ from one to the other:
 
 ``TrainBatchNorm`` chains them for autograd, with the all-reduce of the
 moments and of the sums between them when the BatchNorm's process group
-has more than one rank (the treatment of ``_BatchMoments`` and of
-kernels/fused_block.py's ``_bn_bwd``). It keeps x and per-channel vectors
+has more than one rank. It keeps x and per-channel vectors
 for the backward, no fp32 copy of an activation, and recomputes ReLU's
 mask from x. Each ``bn_*`` function counts its kernel launches in
 ``<fn>.launches``.
@@ -475,8 +474,11 @@ class TrainBatchNorm(torch.autograd.Function):
     ``group`` of W > 1 ranks the moments are the global batch's (one
     all-reduce forward); in the backward dx takes its coefficients from the
     sums added over the ranks and the global row count, while dweight and
-    dbias come from the rank's own sums (a second all-reduce): what
-    autograd gives the plain chain (``_BatchMoments``)."""
+    dbias come from the rank's own sums (a second all-reduce). Each rank
+    differentiates its own loss L_r and the step averages the parameter
+    gradients over the ranks, the gradient of the mean of the L_r; the
+    moments feed every rank's loss, so rank r's dx is d(sum_s L_s)/dx_r,
+    as in the local gradients of the other layers."""
 
     @staticmethod
     def forward(ctx, x, weight, bias, running: Optional[Running], eps: float, relu: bool,

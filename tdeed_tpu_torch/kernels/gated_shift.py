@@ -21,7 +21,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from tdeed_tpu_torch.models.common import acc_dtype
+from tdeed_tpu_torch.kernels.batchnorm import acc_dtype
 from tdeed_tpu_torch.ops.temporal import lshift_zero, rshift_zero
 
 

@@ -13,14 +13,10 @@ from __future__ import annotations
 import contextlib
 
 import torch
-import torch.distributed as dist
 import torch.nn as nn
 import torch.nn.functional as F
 
-from tdeed_tpu_torch.kernels.batchnorm import (
-    acc_dtype, batch_norm_train, bn_fold, update_running,
-)
-from tdeed_tpu_torch.parallel import mesh
+from tdeed_tpu_torch.kernels.batchnorm import batch_norm_train, bn_fold
 
 
 def _cast(p, dtype):
@@ -64,53 +60,6 @@ class Linear(nn.Linear):
 def gelu_exact(x):
     """torch nn.GELU's default erf form (tdeed_tpu/models/common.py:50)."""
     return F.gelu(x, approximate="none")
-
-
-class _BatchMoments(torch.autograd.Function):
-    """Per-channel E[x] and E[x^2] in fp32 (or wider) over every dim but 1,
-    over the global batch of ``group`` when it has more than one rank.
-
-    Autograd over ``x.float()`` would keep an fp32 copy of every normalized
-    activation for the backward pass (twice the bf16 activation itself).
-    This keeps only ``x`` and recomputes the fp32 view in the backward,
-    with the same gradient: d/dx = (g_mean + 2 x g_sq) / n.
-
-    Over W ranks of equal shards (parallel/mesh.py) the forward averages
-    the W local moments (one all-reduce of both), the counterpart of the
-    JAX step's moments over its sharded global batch. Each rank then
-    differentiates its own loss L_r, and the step averages the parameter
-    gradients over the ranks, which is the gradient of the mean of the
-    L_r. The moments feed every rank's loss, so the backward sums the W
-    incoming (g_mean, g_sq) (a second all-reduce) and divides by the
-    global count n W: rank r's d/dx is then d(sum_s L_s)/dx_r, as in the
-    local gradients of the other layers."""
-
-    @staticmethod
-    def forward(ctx, x, group=None):
-        dims = [d for d in range(x.ndim) if d != 1]
-        xf = x.to(acc_dtype(x))
-        mean, sq = xf.mean(dims), xf.square().mean(dims)
-        world = mesh.world(group)
-        if world > 1:
-            moments = torch.stack([mean, sq])
-            dist.all_reduce(moments, group=group)
-            mean, sq = (moments / world).unbind(0)
-        ctx.save_for_backward(x)
-        ctx.group, ctx.world = group, world
-        return mean, sq
-
-    @staticmethod
-    def backward(ctx, g_mean, g_sq):
-        (x,) = ctx.saved_tensors
-        shape = [1] * x.ndim
-        shape[1] = x.shape[1]
-        n = x.numel() // x.shape[1] * ctx.world
-        if ctx.world > 1:
-            grads = torch.stack([g_mean, g_sq])
-            dist.all_reduce(grads, group=ctx.group)
-            g_mean, g_sq = grads[0], grads[1]
-        g = g_mean.view(shape) + 2.0 * x.to(acc_dtype(x)) * g_sq.view(shape)
-        return (g / n).to(x.dtype), None
 
 
 class SplitBatchNorm(nn.Module):
@@ -165,23 +114,6 @@ class SplitBatchNorm(nn.Module):
         a, b = bn_fold(self.running_mean, self.running_var, self.weight, self.bias, self.eps, x)
         y = x * a + b
         return torch.relu(y) if self.relu else y
-
-    def record(self, mean, var) -> None:
-        """Mix a training batch's (mean, biased var) into the running
-        statistics and count the batch, unless ``update_stats`` is off.
-        The fused trunk units (kernels/fused_block.py) return their
-        statistics, and their modules record them here."""
-        if self.update_stats:
-            update_running((self.running_mean, self.running_var, self.num_batches_tracked),
-                           mean, var)
-
-
-def batch_stats(x, group=None):
-    """SplitBatchNorm's training statistics of ``x``: the per-channel mean
-    and the biased E[x^2] - E[x]^2, fp32 (or wider), over the global batch
-    of ``group``; differentiable (_BatchMoments)."""
-    mean, sq = _BatchMoments.apply(x, group)
-    return mean, sq - mean.square()
 
 
 @contextlib.contextmanager

@@ -10,8 +10,8 @@ kernels run on the same memory: only the issuing changes.
 
 Where graphs hold (``eager_reason`` returns None): a train-mode forward
 with grad on, on the card, with no process group and no
-``checkpoint_backbone``, ``fuse_entry`` or ``fuse_shift``. Elsewhere the
-layers run eagerly: serving, validation, data parallelism, the knobs. So
+``checkpoint_backbone``. Elsewhere the layers run eagerly: serving,
+validation, data parallelism, ``checkpoint_backbone``. So
 do frames that need a gradient (the trunk graph gives its input none) and
 a model with a frozen parameter (its capture differentiates them all).
 
@@ -99,7 +99,7 @@ def eager_reason(model, device) -> Optional[str]:
     if not (model.training and torch.is_grad_enabled()):
         return "eval mode or grad off"
     if model.eager_only:
-        return "checkpoint_backbone, fuse_entry or fuse_shift"
+        return "checkpoint_backbone"
     if torch.device(device).type != "cuda":
         return "not on the card"
     if mesh.group_of(model) is not None:

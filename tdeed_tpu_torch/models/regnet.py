@@ -18,31 +18,19 @@ own: only block inputs are kept, one block's activations are live at a
 time in the backward pass, and the numbers are the same. The recompute
 leaves the BN running statistics alone (``frozen_running_stats``), so a
 step updates them once, as flax's remat does.
-
-The fused units (``fuse_entry``, ``fuse_shift``; kernels/fused_block.py)
-take the place of the plain modules in training, as the JAX package routes
-them (tdeed_tpu/models/regnet.py): stem + s1_b1 and s2_b1 through
-``fused_block``, every stride-2 shift block through ``fused_shift_block``,
-conv1 + BN + ReLU of every stride-1 block through ``fused_conv_bn_relu``.
-They read the same parameters, and the modules record the statistics they
-return, so the state_dict, eval, predict and export are the plain ones.
-With checkpointing, stem + s1_b1 is one unit.
 """
 
 from __future__ import annotations
 
 import contextlib
 import functools
-from typing import Callable, List, Optional, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn as nn
 from torch.utils.checkpoint import checkpoint
 
-from tdeed_tpu_torch.kernels.fused_block import (
-    BLOCK_BNS, fused_block, fused_conv_bn_relu, fused_shift_block,
-)
 from tdeed_tpu_torch.models.common import Conv2d, SplitBatchNorm, frozen_running_stats
 from tdeed_tpu_torch.models.shift import GatedShift
 
@@ -120,19 +108,11 @@ class YBlock(nn.Module):
     """RegNet-Y bottleneck block (bottle_ratio 1). With ``shift_mode``
     'gsm' or 'gsf', conv1 is wrapped by a GatedShift over clips of
     ``clip_len`` frames: the shift sees the block input, the shortcut does
-    not (ref: model/shift.py:89-93).
-
-    ``fuse`` (the config's ``fuse_shift``), in training: a stride-2 shift
-    block runs through ``fused_shift_block`` after the shift, a stride-1
-    block runs conv1 + BN + ReLU through ``fused_conv_bn_relu``; others
-    run plain (tdeed_tpu/models/regnet.py:YBlock)."""
+    not (ref: model/shift.py:89-93)."""
 
     def __init__(self, in_width, width, stride, group_size,
-                 shift_mode: Optional[str] = None, clip_len: Optional[int] = None,
-                 fuse: bool = False):
+                 shift_mode: Optional[str] = None, clip_len: Optional[int] = None):
         super().__init__()
-        self.stride = stride
-        self.fuse = fuse
         conv1 = ConvBN(in_width, width, 1)
         if shift_mode is not None:
             conv1 = GatedShift(in_width, clip_len, net=conv1, mode=shift_mode)
@@ -146,49 +126,16 @@ class YBlock(nn.Module):
         if stride != 1 or in_width != width:
             self.downsample = ConvBN(in_width, width, 1, stride=stride, act=False)
 
-    @property
-    def conv1_bn(self) -> nn.Module:
-        """The ConvBN of conv1 (a shift block's GatedShift wraps it)."""
-        return getattr(self.conv1, "net", self.conv1)
-
-    def record(self, stats) -> None:
-        """Write a fused unit's batch statistics into the running ones."""
-        for name in BLOCK_BNS:
-            bn = self.conv1_bn.bn if name == "conv1" else getattr(self, name).bn
-            bn.record(*stats[name])
-
     def forward(self, x):
-        fuse = self.fuse and self.training
-        shifted = isinstance(self.conv1, GatedShift)
-        if fuse and shifted and self.stride == 2:
-            out, stats = fused_shift_block(self.conv1.shift(x), x, self)
-            self.record(stats)
-            return out
         shortcut = x if self.downsample is None else self.downsample(x)
-        if fuse and self.stride == 1:
-            conv1 = self.conv1_bn
-            out, stats = fused_conv_bn_relu(self.conv1.shift(x) if shifted else x, conv1)
-            conv1.bn.record(*stats)
-        else:
-            out = self.conv1(x)
-        out = self.conv3(self.se(self.conv2(out)))
+        out = self.conv3(self.se(self.conv2(self.conv1(x))))
         return torch.relu(out + shortcut)
 
 
-def _fused_entry(stem: Optional[ConvBN], block: YBlock, x):
-    """``[stem ->] block`` through ``fused_block``, then the running
-    statistics of every BN it covers recorded."""
-    out, stats = fused_block(x, block, stem)
-    if stem is not None:
-        stem.bn.record(*stats.pop("stem"))
-    block.record(stats)
-    return out
-
-
-def _frozen_recompute(*modules: nn.Module):
+def _frozen_recompute(unit: nn.Module):
     """context_fn of a checkpointed unit: the forward as it is, the
-    recompute with the running statistics of ``modules`` frozen."""
-    return contextlib.nullcontext(), frozen_running_stats(*modules)
+    recompute with the running statistics of ``unit`` frozen."""
+    return contextlib.nullcontext(), frozen_running_stats(unit)
 
 
 class RegNetY(nn.Module):
@@ -198,17 +145,14 @@ class RegNetY(nn.Module):
     or 'gsf' puts that GatedShift, over clips of ``clip_len`` frames, in
     every block of stages 3 and 4 (ref: model/shift.py:57-59); None builds
     the plain trunk. ``checkpoint_blocks`` checkpoints the stem and each
-    block in training; ``fuse_entry`` and ``fuse_shift`` route training
-    through the fused units (module docstring)."""
+    block in training (module docstring)."""
 
     def __init__(self, arch: str = "rny002", clip_len: Optional[int] = None,
-                 shift_mode: Optional[str] = None, checkpoint_blocks: bool = False,
-                 fuse_entry: bool = False, fuse_shift: bool = False):
+                 shift_mode: Optional[str] = None, checkpoint_blocks: bool = False):
         super().__init__()
         if shift_mode is not None and not clip_len:
             raise ValueError(f"a {shift_mode} trunk needs clip_len")
         self.checkpoint_blocks = checkpoint_blocks
-        self.fuse_entry = fuse_entry
         p = ARCH_PARAMS[arch]
         widths, depths, groups = generate_stages(
             p["w0"], p["wa"], p["wm"], p["depth"], p["group_size"]
@@ -222,34 +166,19 @@ class RegNetY(nn.Module):
                 blocks[f"b{bi + 1}"] = YBlock(
                     in_w, w, 2 if bi == 0 else 1, g,
                     shift_mode=shift_mode if si >= 2 else None, clip_len=clip_len,
-                    fuse=fuse_shift,
                 )
                 in_w = w
             self.add_module(f"s{si + 1}", nn.ModuleDict(blocks))
         self.n_stages = len(widths)
 
-    def _units(self) -> List[Tuple[Callable, Tuple[nn.Module, ...]]]:
-        """The trunk's forward as (function of x, the modules it runs):
-        the stem and each block, or with ``fuse_entry`` in training the
-        fused stem + s1_b1 and s2_b1 in their places."""
-        fused = self.fuse_entry and self.training
-        units = [] if fused else [(self.stem, (self.stem,))]
-        for si in range(self.n_stages):
-            for bi, block in enumerate(getattr(self, f"s{si + 1}").values()):
-                if fused and bi == 0 and si < 2:
-                    stem = self.stem if si == 0 else None
-                    mods = (block,) if stem is None else (stem, block)
-                    units.append((functools.partial(_fused_entry, stem, block), mods))
-                else:
-                    units.append((block, (block,)))
-        return units
-
     def forward(self, x):
         recompute = self.checkpoint_blocks and self.training and torch.is_grad_enabled()
-        for fn, mods in self._units():
+        units = [self.stem] + [block for si in range(self.n_stages)
+                               for block in getattr(self, f"s{si + 1}").values()]
+        for unit in units:
             if recompute:
-                x = checkpoint(fn, x, use_reentrant=False,
-                               context_fn=functools.partial(_frozen_recompute, *mods))
+                x = checkpoint(unit, x, use_reentrant=False,
+                               context_fn=functools.partial(_frozen_recompute, unit))
             else:
-                x = fn(x)
+                x = unit(x)
         return x.mean(dim=(2, 3))

@@ -22,7 +22,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from tdeed_tpu_torch.models.common import Conv1d, acc_dtype, gelu_exact
+from tdeed_tpu_torch.kernels.batchnorm import acc_dtype
+from tdeed_tpu_torch.models.common import Conv1d, gelu_exact
 from tdeed_tpu_torch.ops.temporal import adaptive_max_pool1d, linear_upsample
 
 

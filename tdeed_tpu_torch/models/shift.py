@@ -111,8 +111,7 @@ class GatedShift(nn.Module):
 
     def shift(self, x):
         """The shifted input ``net`` reads: the first fold_dim channels
-        through GSM or GSF, the rest as they are. The fused trunk units
-        (kernels/fused_block.py) take it and ``net``'s parameters."""
+        through GSM or GSF, the rest as they are."""
         n, c, h, w = x.shape
         b = n // self.clip_len
         f = self.fold

@@ -37,8 +37,7 @@ class TDEED(nn.Module):
       'displ':  (B, T) fp32 when radi_displacement > 0.
     The trunk is RegNet-Y ``arch`` with ``shift_mode`` ('gsm', 'gsf' or
     None for the plain trunk) in s3/s4; ``checkpoint_backbone`` recomputes
-    its activations in the backward pass, ``fuse_entry`` and ``fuse_shift``
-    train it through the fused units (models/regnet.py).
+    its activations in the backward pass (models/regnet.py).
     With grad enabled the forward marks each layer's last output, so that
     the backward runs in the profiler regions ``backward.heads``,
     ``backward.temporal`` and ``backward.trunk`` in turn
@@ -63,18 +62,16 @@ class TDEED(nn.Module):
                  arch: str = "rny002",
                  two_heads: Optional[Sequence[int]] = None,
                  shift_mode: Optional[str] = "gsf",
-                 checkpoint_backbone: bool = False,
-                 fuse_entry: bool = False, fuse_shift: bool = False):
+                 checkpoint_backbone: bool = False):
         super().__init__()
         self.clip_len = clip_len
         self.dtype = dtype
         self.two_heads = None if two_heads is None else tuple(two_heads)
-        # the knobs whose layers run eagerly in training (models/graphs.py)
-        self.eager_only = checkpoint_backbone or fuse_entry or fuse_shift
+        # the knob whose layers run eagerly in training (models/graphs.py)
+        self.eager_only = checkpoint_backbone
         self._graphs = ModelGraphs()
         self._features = RegNetY(arch, clip_len=clip_len, shift_mode=shift_mode,
-                                 checkpoint_blocks=checkpoint_backbone,
-                                 fuse_entry=fuse_entry, fuse_shift=fuse_shift)
+                                 checkpoint_blocks=checkpoint_backbone)
         d = self._features.feat_dim
         self.feat_dim = d
         # N(0, 1/clip_len) additive temporal embedding (ref: model/model.py:65,137)
@@ -179,7 +176,8 @@ def build_model(cfg, two_heads=None, *, device="cuda") -> TDEED:
     """Construct a TDEED module from a TDEEDConfig (tdeed_tpu_torch.config)
     on ``device``: the CUDA device unless the caller asks for the CPU.
     ``two_heads`` = (C1+1, C2+1) builds the FC2 double head of joint
-    pretraining (``two_heads_for``).
+    pretraining (``two_heads_for``). The config's fused-block knobs are
+    the JAX package's alone (config.py): they build the same model.
 
     Weights are drawn from torch's default CPU generator and then moved,
     so one seed gives the same weights on every device. Without a CUDA
@@ -204,8 +202,6 @@ def build_model(cfg, two_heads=None, *, device="cuda") -> TDEED:
         two_heads=two_heads,
         shift_mode=cfg.shift_mode,
         checkpoint_backbone=cfg.checkpoint_backbone,
-        fuse_entry=cfg.fuse_entry,
-        fuse_shift=cfg.fuse_shift,
     ).to(device)
 
 

@@ -9,8 +9,8 @@ the global math is kept by hand:
   * every rank holds the same weights and loads its own equal shard of each
     global micro-batch (``global_rows``);
   * BatchNorm takes its moments over the global batch
-    (models/common.py: ``_BatchMoments`` with the model's process group,
-    set by ``distribute``), and the hard weighted CE its weight sum
+    (kernels/batchnorm.py: ``TrainBatchNorm`` with the model's process
+    group, set by ``distribute``), and the hard weighted CE its weight sum
     (train/losses.py);
   * the step draws the global micro-batch's randomness and keeps its rows,
     then averages the gradients once per optimizer step

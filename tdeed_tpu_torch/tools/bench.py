@@ -3,7 +3,7 @@ the flagship envelope, SoccerNet Ball challenge training, and the host
 input path (port of bench.py).
 
     python -m tdeed_tpu_torch.tools.bench [--snb_warmup 2] [--snb_steps 10] \\
-        [--fuse_entry] [--fuse_shift] [--device cuda|cpu]
+        [--device cuda|cpu]
 
 1. Flagship training (FineDiving_small: rny002_gsf, batch 8 x clip 100 of
    256x256 uint8 frames cropped to 224, mixup, bf16 compute, AdamW, K1 on):
@@ -27,10 +27,7 @@ input path (port of bench.py).
 The counts and sizes stand in measure.SIZES. Each part reports its peak
 device memory; the training parts K1's launches a step. A failing part
 fails the run (no fallback to the plain graph, no part left out).
-``--fuse_entry``/``--fuse_shift`` turn on the fused trunk units in the
-flagship step (bench.py's FUSE_ENTRY / FUSE_SHIFT); both are off by
-default. Prints one JSON line, with the card's name, power limit and
-count.
+Prints one JSON line, with the card's name, power limit and count.
 
 Without a card it exits non-zero. ``--device cpu`` runs every part on the
 host at a tiny size (SIZES["cpu"], fp32): its JSON says "platform": "cpu"
@@ -56,8 +53,6 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--snb_warmup", type=int, default=2)
     p.add_argument("--snb_steps", type=int, default=10)
-    p.add_argument("--fuse_entry", action="store_true")
-    p.add_argument("--fuse_shift", action="store_true")
     p.add_argument("--device", default="cuda", help="where the model runs (default: the card)")
     args = p.parse_args(argv)
     if args.snb_steps < 1:
@@ -70,7 +65,7 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
 
     # --- 1. flagship training ---------------------------------------------
     b, t, frame, crop, pb = sizes["flagship"]
-    cfg = measure.flagship_config(t, crop, dev, args.fuse_entry, args.fuse_shift)
+    cfg = measure.flagship_config(t, crop, dev)
     r = np.random.default_rng(0)
     batches = [measure.on_device(measure.make_batch(
         r, b, t, frame, frame, cfg.num_classes_bg, cfg.radi_displacement, False), dev)
@@ -85,7 +80,6 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
                                                    train["step_ms"]["min"])]
     out = {"tool": "bench", "metric": "train_frames_per_sec", "value": fps[1],
            "unit": "frames/s", **where,
-           "fuse_entry": args.fuse_entry, "fuse_shift": args.fuse_shift,
            "train_frames_per_sec": {"median": fps[1], "min": fps[0], "max": fps[2],
                                     "n": train["step_ms"]["n"]},
            "train_step_ms": train["step_ms"], "train_peak_gib": train["peak_gib"],

@@ -1,7 +1,7 @@
 """SoccerNet Ball challenge-geometry benchmark: training and predict at
 796x448 full frames (port of tools/bench_snb.py).
 
-    python -m tdeed_tpu_torch.tools.bench_snb [--variants k1,plain,remat,fused] \\
+    python -m tdeed_tpu_torch.tools.bench_snb [--variants k1,plain,remat] \\
         [--acc 1|2] [--steps 10] [--warmup 3] [--device cuda|cpu]
 
 The envelope is SoccerNetBall_challenge1's (configs/SoccerNetBall/
@@ -20,8 +20,7 @@ has one design, so its variants are the knobs the port has:
   k1      the default step, K1 (csrc/photometric.cu) once a micro-batch;
   plain   ``pallas_augment=False``: the plain photometric chain, K1 never
           launched;
-  remat   ``checkpoint_backbone``;
-  fused   ``fuse_entry`` and ``fuse_shift``.
+  remat   ``checkpoint_backbone``.
 
 ``--acc`` sets acc_grad_iter (micro-batches of batch/acc clips). For each
 variant: the step's ms (median, min, max, n; each step on the host clock,
@@ -67,13 +66,12 @@ VARIANTS = {
     "k1": ({}, None),
     "plain": ({}, False),
     "remat": ({"checkpoint_backbone": True}, None),
-    "fused": ({"fuse_entry": True, "fuse_shift": True}, None),
 }
 
 
 def main(argv: Optional[Sequence[str]] = None) -> dict:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    p.add_argument("--variants", default="k1,plain,remat,fused")
+    p.add_argument("--variants", default="k1,plain,remat")
     p.add_argument("--steps", type=int, default=10)
     p.add_argument("--warmup", type=int, default=3)
     p.add_argument("--batch", type=int, default=BATCH)

@@ -53,7 +53,7 @@ def _dtype(device) -> str:
     return "bfloat16" if torch.device(device).type == "cuda" else "float32"
 
 
-def flagship_config(clip_len: int, crop: int, device, fuse_entry=False, fuse_shift=False):
+def flagship_config(clip_len: int, crop: int, device):
     """FineDiving_small's model (rny002_gsf, 2 SGP-Mixer layers, kernel 7),
     bf16 on the card and fp32 on the CPU."""
     from tdeed_tpu_torch.config import TDEEDConfig
@@ -61,7 +61,7 @@ def flagship_config(clip_len: int, crop: int, device, fuse_entry=False, fuse_shi
     return TDEEDConfig(
         dataset="finediving", num_classes=4, clip_len=clip_len, crop_dim=crop,
         feature_arch="rny002_gsf", n_layers=2, sgp_ks=7, sgp_r=4, radi_displacement=2,
-        dtype=_dtype(device), fuse_entry=fuse_entry, fuse_shift=fuse_shift,
+        dtype=_dtype(device),
     )
 
 

@@ -2,9 +2,9 @@
 on the CPU, where it runs the four kernels' plain twins.
 
 The twins are held in float64 against the eager chain SplitBatchNorm ran
-before the kernels: ``_BatchMoments`` + ``bn_fold`` + ``x * a + b`` (+ ReLU),
-differentiated by autograd, with the running statistics written by
-``record``. The forward takes the same operations, so it agrees to the
+before the kernels: the moments by stock ops + ``bn_fold`` + ``x * a + b``
+(+ ReLU), differentiated by autograd, with the running statistics written
+by ``update_running``. The forward takes the same operations, so it agrees to the
 last bit; the backward adds the two sums and applies the coefficient
 formula where autograd took the chain's own steps, so the two agree to
 float64 rounding (1e-10 of each quantity's largest entry). The launch plan
@@ -20,7 +20,7 @@ import torch
 from tdeed_tpu_torch.kernels import batchnorm
 from tdeed_tpu_torch.kernels.batchnorm import BNPlan, batch_norm_train, bn_plan
 from tdeed_tpu_torch.models import common, regnet
-from tdeed_tpu_torch.models.common import SplitBatchNorm, _BatchMoments, bn_fold
+from tdeed_tpu_torch.models.common import SplitBatchNorm, bn_fold
 
 EPS = 1e-5
 TOL = 1e-10
@@ -52,11 +52,18 @@ def _params(c, gen):
     return weight, bias, mean, var
 
 
+def _moments(x):
+    """The per-channel mean and biased variance E[x^2] - E[x]^2 over every
+    dim but 1, by stock ops (differentiable)."""
+    dims = [d for d in range(x.ndim) if d != 1]
+    mean = x.mean(dims)
+    return mean, x.square().mean(dims) - mean.square()
+
+
 def _chain(x, weight, bias, relu, running_mean, running_var, update):
     """The eager chain by autograd: (y, mean, var), the running statistics
-    updated as ``SplitBatchNorm.record`` did."""
-    mean, sq = _BatchMoments.apply(x, None)
-    var = sq - mean.square()
+    updated as ``update_running`` does."""
+    mean, var = _moments(x)
     if update:
         with torch.no_grad():
             running_mean.copy_(0.9 * running_mean + (1 - 0.9) * mean)
@@ -136,8 +143,10 @@ def _plain_forward(self, x):
     """SplitBatchNorm.forward as it was before the kernels: the eager chain,
     differentiated by autograd."""
     if self.training:
-        mean, var = common.batch_stats(x, self.process_group)
-        self.record(mean, var)
+        mean, var = _moments(x)
+        if self.update_stats:
+            batchnorm.update_running(
+                (self.running_mean, self.running_var, self.num_batches_tracked), mean, var)
     else:
         mean, var = self.running_mean, self.running_var
     a, b = bn_fold(mean, var, self.weight, self.bias, self.eps, x)

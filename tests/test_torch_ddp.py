@@ -40,7 +40,6 @@ from flax.traverse_util import flatten_dict
 
 import jax
 from tdeed_tpu_torch.models.common import SplitBatchNorm
-from tdeed_tpu_torch.models.regnet import RegNetY
 from tdeed_tpu_torch.models.tdeed import TDEED
 from tests import torch_ddp_worker as worker
 from tests.test_torch_train_step import _jax_augmented, _jax_step
@@ -62,21 +61,32 @@ def _batch(rng):
     }
 
 
-def _initial_state():
-    """The port's seeded init, and the same weights as the JAX package's
-    trees (the reference checkpoint converter)."""
-    torch.manual_seed(0)
-    state = TDEED(worker.N_CLASSES, worker.T, dtype=torch.float32, **worker.MODEL).state_dict()
-    params, stats, _ = convert_reference_state_dict(state)
-    return state, {"params": params, "batch_stats": stats}
+def _initial_states():
+    """The port's seeded init of the step's model with each trunk
+    (worker.TRUNKS), GSM's zero-initialised gates drawn from N(0, 0.05) so
+    that every weight has a gradient, and the gsf model's weights as the
+    JAX package's trees (the reference checkpoint converter)."""
+    states = {}
+    for trunk, shift_mode in worker.TRUNKS.items():
+        torch.manual_seed(0)
+        model = TDEED(worker.N_CLASSES, worker.T, dtype=torch.float32, shift_mode=shift_mode,
+                      **worker.MODEL)
+        if shift_mode == "gsm":
+            with torch.no_grad():
+                for name, p in model.named_parameters():
+                    if "conv3D" in name:
+                        p.normal_(0.0, 0.05)
+        states[trunk] = model.state_dict()
+    params, stats, _ = convert_reference_state_dict(states["gsf"])
+    return states, {"params": params, "batch_stats": stats}
 
 
-def _fused_trunk_state():
-    """Seeded float64 weights of worker.FUSED_TRUNK, every parameter ramped
-    by +0.05 (as tests/test_fused_block.py) so the statistics' gradients
-    matter."""
+def _trunk_state(trunk):
+    """Seeded float64 weights of the worker's ``trunk``, every parameter
+    ramped by +0.05 (as tests/test_fused_block.py) so the statistics'
+    gradients matter and the GSM gates are not zero."""
     torch.manual_seed(1)
-    trunk = RegNetY("rny002", **worker.FUSED_TRUNK).double()
+    trunk = worker.make_trunk(trunk)
     with torch.no_grad():
         for p in trunk.parameters():
             p.add_(0.05 * torch.arange(p.numel(), dtype=p.dtype).reshape(p.shape) / p.numel())
@@ -95,8 +105,8 @@ def ddp(tmp_path_factory):
     rng = np.random.default_rng(5)
     batch_np = _batch(rng)
     batch = {k: torch.from_numpy(v) for k, v in batch_np.items()}
-    state, variables = _initial_state()
-    (draws,) = _global_draws(state, batch)
+    states, variables = _initial_states()
+    (draws,) = _global_draws(states["gsf"], batch)
     jax_draws = dict(crop=draws.crop, lam=None, aug=draws.aug.numpy(),
                      keep={k: v.numpy() for k, v in draws.dropout_keep.items()})
     augmented = _jax_augmented(batch_np, jax_draws, mixup=False)
@@ -110,7 +120,7 @@ def ddp(tmp_path_factory):
     ce_labels[B * 3:] = rng.integers(1, worker.NC_BG, B * 3)
     inputs = {
         "batch": batch,
-        "state": state,
+        "states": states,
         "augmented": augmented,
         "bn_x": torch.from_numpy(rng.normal(1.0, 2.0, (B, 6, 3, 5))),
         "bn_c": torch.from_numpy(rng.normal(size=(B, 6, 3, 5))),
@@ -118,7 +128,7 @@ def ddp(tmp_path_factory):
         "ce_logits": torch.from_numpy(rng.normal(size=(B * 6, worker.NC_BG))),
         "ce_labels": torch.from_numpy(ce_labels),
         "ce_weights": torch.tensor([1.0, 5.0, 5.0, 5.0, 5.0], dtype=torch.float64),
-        "trunk_state": _fused_trunk_state(),
+        "trunk_states": {trunk: _trunk_state(trunk) for trunk in worker.TRUNKS},
         "trunk_x": torch.from_numpy(rng.normal(size=(TRUNK_FRAMES, 3, TRUNK_HW, TRUNK_HW))),
         "trunk_c": torch.from_numpy(rng.normal(size=(TRUNK_FRAMES, 368))),
     }
@@ -137,11 +147,12 @@ def ddp(tmp_path_factory):
         ref = {"inputs": inputs}
         ref["bn_fn"] = worker.bn_function_run(inputs["bnf"], inputs["bnf"]["x"],
                                               inputs["bnf"]["c"])
-        ref["trunk"] = worker.fused_trunk_run(inputs["trunk_state"], inputs["trunk_x"],
-                                              inputs["trunk_c"])
-        for name, mixup, acc, dtype, replaced, fuse in worker.STEP_CASES:
-            step = worker.make_step(inputs["state"], dtype, mixup, acc, distributed=False,
-                                    fuse=fuse)
+        for trunk, state in inputs["trunk_states"].items():
+            ref[f"trunk-{trunk}"] = worker.trunk_run(trunk, state, inputs["trunk_x"],
+                                                     inputs["trunk_c"])
+        for name, mixup, acc, dtype, replaced, trunk in worker.STEP_CASES:
+            step = worker.make_step(inputs["states"][trunk], dtype, mixup, acc,
+                                    distributed=False, trunk=trunk)
             loss, state, grads, step_draws = worker.run_step(
                 step, batch, [augmented] if replaced else None)
             ref[name] = {"loss": loss, "state": state, "grads": grads, "draws": step_draws}
@@ -253,19 +264,20 @@ def _assert_step_close(got, want, loss_rtol, stats_atol):
     assert close >= 0.99 * total, f"{total - close} of {total} weight elements differ"
 
 
-def test_fused_trunk_over_two_ranks_is_the_global_batch_in_float64(ddp):
-    """The trunk with fuse_entry and fuse_shift (every fused unit: the entry
-    units, the shift units, the stride-1 conv1 units) over 2 ranks in
+@pytest.mark.parametrize("trunk", list(worker.TRUNKS))
+def test_trunk_over_two_ranks_is_the_global_batch_in_float64(ddp, trunk):
+    """The rny002 trunk with GSF, with GSM or plain, over 2 ranks in
     float64, at 1e-12 of each tensor's largest entry: each rank's features
     are its rows of the one-process features, its input gradient its rows
-    of the global one (the units' k0 and k1 come from the sums over both
-    ranks), the running statistics the global batch's on both ranks, and
-    the ranks' summed parameter gradients the global ones (dscale and dbias
-    from each rank's own sums; the loss is a sum, so no factor W)."""
+    of the global one (each BatchNorm's backward coefficients come from
+    the sums over both ranks), the running statistics the global batch's
+    on both ranks, and the ranks' summed parameter gradients the global
+    ones (dscale and dbias from each rank's own sums; the loss is a sum,
+    so no factor W)."""
     ref, ranks = ddp
-    want = ref["trunk"]
+    want = ref[f"trunk-{trunk}"]
     for r, out in enumerate(ranks):
-        got = out["trunk"]
+        got = out[f"trunk-{trunk}"]
         _close(got["y"], _rows(want["y"], r), 1e-12, "features")
         _close(got["x_grad"], _rows(want["x_grad"], r), 1e-12, "input grad")
         for k, w in want["state"].items():
@@ -274,14 +286,14 @@ def test_fused_trunk_over_two_ranks_is_the_global_batch_in_float64(ddp):
             else:
                 assert torch.equal(got["state"][k], w), k
     for k, w in want["grads"].items():
-        _close(sum(o["trunk"]["grads"][k] for o in ranks), w, 1e-12, k)
+        _close(sum(o[f"trunk-{trunk}"]["grads"][k] for o in ranks), w, 1e-12, k)
 
 
 @pytest.mark.parametrize("name", ["mixup-acc1", "mixup-acc2", "plain-acc1", "plain-acc2",
-                                  "fused-mixup-acc2", "fused-plain-acc1"])
+                                  "gsm-mixup-acc2", "rny002-plain-acc1"])
 def test_train_step_over_two_ranks_matches_one_process(ddp, name):
-    """fp32, mixup on and off, acc_grad_iter 1 and 2, and with fuse_entry
-    and fuse_shift on (the fused-* cases): the global loss,
+    """fp32, mixup on and off, acc_grad_iter 1 and 2, with the GSF trunk,
+    and with the GSM and the plain rny002 trunks: the global loss,
     running statistics and weights after one step equal the one-process
     step's on the global batch (module docstring), both ranks hold the
     same weights bit for bit, and every weight moved."""
@@ -290,7 +302,8 @@ def test_train_step_over_two_ranks_matches_one_process(ddp, name):
         _assert_step_close(out[name], ref[name], 1e-4, 1e-4)
     for k, v in ranks[0][name]["state"].items():
         assert torch.equal(v, ranks[1][name]["state"][k]), k
-    init = ref["inputs"]["state"]
+    trunk = {case[0]: case[-1] for case in worker.STEP_CASES}[name]
+    init = ref["inputs"]["states"][trunk]
     for k, v in ranks[0][name]["state"].items():
         if v.is_floating_point() and "running" not in k:
             assert (v.double() - init[k].double()).abs().max() > 0.5 * LR0, k

@@ -2,7 +2,8 @@
 config and the SoccerNet Ball challenge config at full width, takes every
 shipped config and trains every feature_arch the JAX package builds, its
 entry points run on CUDA unless asked for the CPU, it takes the
-fused-block knobs, and its data-parallel entry points refuse, before
+fused-block knobs (the JAX package's alone) and builds the same model, and
+its data-parallel entry points refuse, before
 anything is read or written, only what they cannot run: more ranks or
 replicas than cards, a batch that does not split into acc_grad_iter x
 ranks, --distributed outside a torchrun launch."""
@@ -55,7 +56,7 @@ def test_importing_every_port_module_leaves_jax_out():
         "'tdeed_tpu_torch.cli.extract_frames', 'tdeed_tpu_torch.tools.fixtures', "
         "'tdeed_tpu_torch.tools.validate_reference_checkpoint', "
         "'tdeed_tpu_torch.tools.overfit_check', 'tdeed_tpu_torch.tools.drive_e2e', "
-        "'tdeed_tpu_torch.tools.convergence_check', 'tdeed_tpu_torch.kernels.fused_block', "
+        "'tdeed_tpu_torch.tools.convergence_check', "
         "'tdeed_tpu_torch.tools.bench', 'tdeed_tpu_torch.tools.bench_snb', "
         "'tdeed_tpu_torch.tools.bench_input', 'tdeed_tpu_torch.tools.profile_step', "
         "'tdeed_tpu_torch.tools.profile_infer', 'tdeed_tpu_torch.tools.measure') "
@@ -97,16 +98,23 @@ def test_build_model_defaults_to_cuda_and_never_falls_back(monkeypatch):
 @pytest.mark.parametrize("override", [{"fuse_entry": True}, {"fuse_shift": True},
                                       {"fuse_entry": True, "fuse_shift": True}])
 def test_build_model_and_train_cli_take_the_fused_block_knobs(override):
-    """fuse_entry and fuse_shift, alone or together: the training CLI's
-    startup checks pass, and build_model routes the trunk as the config
-    says (models/regnet.py)."""
+    """fuse_entry and fuse_shift, alone or together, which only the JAX
+    package reads: the training CLI's startup checks pass, and build_model
+    builds the model of the config without them, the same modules and
+    state_dict keys and, from one seed, the same weights."""
     name = "FineDiving_small"
-    cfg = load_config(name, config_root=str(REPO / "configs"), clip_len=8, **override)
+    root = str(REPO / "configs")
+    cfg = load_config(name, config_root=root, clip_len=8, **override)
     train_cli.refuse_waiting(cfg, train_cli.get_args(["--model", name]))
-    trunk = build_model(cfg, device="cpu")._features
-    assert trunk.fuse_entry == cfg.fuse_entry
-    assert {b.fuse for si in range(trunk.n_stages)
-            for b in getattr(trunk, f"s{si + 1}").values()} == {cfg.fuse_shift}
+    torch.manual_seed(0)
+    model = build_model(cfg, device="cpu")
+    torch.manual_seed(0)
+    plain = build_model(load_config(name, config_root=root, clip_len=8), device="cpu")
+    assert repr(model) == repr(plain)
+    got, want = model.state_dict(), plain.state_dict()
+    assert list(got) == list(want)
+    assert all(torch.equal(got[k], want[k]) for k in want)
+    assert not model.eager_only
 
 
 @pytest.mark.parametrize(

@@ -165,12 +165,19 @@ def test_split_batchnorm_keeps_biased_running_var(rng):
 
 
 def test_split_batchnorm_gradient_matches_autograd(rng):
-    """The memory-saving moments Function has autograd's gradient (float64
-    gradcheck) and computes a bf16 input's statistics in fp32."""
-    from tdeed_tpu_torch.models.common import SplitBatchNorm, _BatchMoments
+    """The training BatchNorm Function's CPU twin (batch_norm_train), with
+    and without its ReLU, has the gradient of finite differences (float64
+    gradcheck) in the input, the scale and the bias; SplitBatchNorm
+    computes a bf16 input's statistics in fp32."""
+    from tdeed_tpu_torch.kernels.batchnorm import batch_norm_train
+    from tdeed_tpu_torch.models.common import SplitBatchNorm
 
     x = torch.from_numpy(rng.standard_normal((3, 2, 4, 5))).requires_grad_()
-    assert torch.autograd.gradcheck(_BatchMoments.apply, (x,))
+    weight = torch.from_numpy(rng.uniform(0.5, 1.5, 2)).requires_grad_()
+    bias = torch.from_numpy(rng.standard_normal(2)).requires_grad_()
+    for relu in (False, True):
+        assert torch.autograd.gradcheck(
+            lambda x_, w_, b_: batch_norm_train(x_, w_, b_, 1e-5, relu)[0], (x, weight, bias))
     xb = torch.from_numpy(rng.standard_normal((2, 4, 3, 3)).astype(np.float32)).to(torch.bfloat16)
     bn = SplitBatchNorm(4).train()
     out = bn(xb.requires_grad_())

@@ -33,21 +33,21 @@ T, CROP = 8, 32
 MODEL = dict(n_layers=1, sgp_ks=3, sgp_r=2, radi_displacement=2)
 LR, WARM, COS = 8e-4, 2, 10
 SEED = 11  # of the step's draws
+# the rny002 trunks the port builds, by feature_arch: their shift_mode
+TRUNKS = {"gsf": "gsf", "gsm": "gsm", "rny002": None}
+TRUNK_CLIP = 2  # the float64 trunk cases' clip length
 # the train-step cases: (name, mixup, acc_grad_iter, dtype, replaces the
-# photometric output with the test's "augmented" tensors, fuse_entry and
-# fuse_shift on)
+# photometric output with the test's "augmented" tensors, the trunk)
 STEP_CASES = (
-    ("mixup-acc1", True, 1, torch.float32, False, False),
-    ("mixup-acc2", True, 2, torch.float32, False, False),
-    ("plain-acc1", False, 1, torch.float32, False, False),
-    ("plain-acc2", False, 2, torch.float32, False, False),
-    ("mixup-acc2-float64", True, 2, torch.float64, False, False),
-    ("plain-acc1-jax-augmented", False, 1, torch.float32, True, False),
-    ("fused-mixup-acc2", True, 2, torch.float32, False, True),
-    ("fused-plain-acc1", False, 1, torch.float32, False, True),
+    ("mixup-acc1", True, 1, torch.float32, False, "gsf"),
+    ("mixup-acc2", True, 2, torch.float32, False, "gsf"),
+    ("plain-acc1", False, 1, torch.float32, False, "gsf"),
+    ("plain-acc2", False, 2, torch.float32, False, "gsf"),
+    ("mixup-acc2-float64", True, 2, torch.float64, False, "gsf"),
+    ("plain-acc1-jax-augmented", False, 1, torch.float32, True, "gsf"),
+    ("gsm-mixup-acc2", True, 2, torch.float32, False, "gsm"),
+    ("rny002-plain-acc1", False, 1, torch.float32, False, "rny002"),
 )
-# the fused-unit trunk of the float64 case: rny002 with GSF, clips of 2
-FUSED_TRUNK = dict(clip_len=2, shift_mode="gsf", fuse_entry=True, fuse_shift=True)
 JAX_MODULES = ("jax", "jaxlib", "flax", "optax", "tdeed_tpu")
 
 
@@ -75,12 +75,11 @@ def jax_modules():
 
 
 def make_step(state_dict, dtype, mixup: bool, acc_grad_iter: int, distributed: bool,
-              fuse: bool = False):
-    """The tiny train step of the tests: rny002_gsf, clip 8, crop 32,
-    n_layers 1, from ``state_dict``, in ``dtype``, over the default group
-    when ``distributed``; ``fuse`` turns fuse_entry and fuse_shift on."""
-    model = TDEED(N_CLASSES, T, dtype=dtype, shift_mode="gsf", fuse_entry=fuse,
-                  fuse_shift=fuse, **MODEL)
+              trunk: str = "gsf"):
+    """The tiny train step of the tests: the rny002 ``trunk`` (a TRUNKS
+    key), clip 8, crop 32, n_layers 1, from ``state_dict``, in ``dtype``,
+    over the default group when ``distributed``."""
+    model = TDEED(N_CLASSES, T, dtype=dtype, shift_mode=TRUNKS[trunk], **MODEL)
     if dtype == torch.float64:
         model = model.double()
         state_dict = {k: v.double() if v.is_floating_point() else v
@@ -135,12 +134,17 @@ def bn_function_run(case, x, c, group=None):
             "running_var": running[1], "batches": running[2]}
 
 
-def fused_trunk_run(state_dict, x, c, group=None):
-    """The float64 FUSED_TRUNK from ``state_dict``, over ``group``'s global
+def make_trunk(trunk: str) -> RegNetY:
+    """The float64 rny002 ``trunk`` (a TRUNKS key) over clips of TRUNK_CLIP."""
+    return RegNetY("rny002", clip_len=TRUNK_CLIP, shift_mode=TRUNKS[trunk]).double()
+
+
+def trunk_run(trunk: str, state_dict, x, c, group=None):
+    """The float64 ``trunk`` from ``state_dict``, over ``group``'s global
     batch when given, in train mode on frames ``x`` (N, 3, H, W): its
     features, input gradient, parameter gradients and state under the
     loss sum(features * c)."""
-    trunk = RegNetY("rny002", **FUSED_TRUNK).double()
+    trunk = make_trunk(trunk)
     trunk.load_state_dict(state_dict, strict=True)
     if group is not None:
         mesh.distribute(trunk, group)
@@ -184,15 +188,17 @@ def step_cases(rank: int, world: int, port: int, root: str) -> None:
         loss.backward()
         out["ce"] = {"loss": loss.detach(), "grad": logits.grad}
 
-        # the fused trunk units over the global batch, float64
-        out["trunk"] = fused_trunk_run(
-            inputs["trunk_state"], rows(inputs["trunk_x"], rank, world),
-            rows(inputs["trunk_c"], rank, world), torch.distributed.group.WORLD)
+        # each trunk over the global batch, float64
+        for trunk, state in inputs["trunk_states"].items():
+            out[f"trunk-{trunk}"] = trunk_run(
+                trunk, state, rows(inputs["trunk_x"], rank, world),
+                rows(inputs["trunk_c"], rank, world), torch.distributed.group.WORLD)
 
         # train steps
-        for name, mixup, acc, dtype, replaced, fuse in STEP_CASES:
+        for name, mixup, acc, dtype, replaced, trunk in STEP_CASES:
             batch = {k: rows(v, rank, world, acc) for k, v in inputs["batch"].items()}
-            step = make_step(inputs["state"], dtype, mixup, acc, distributed=True, fuse=fuse)
+            step = make_step(inputs["states"][trunk], dtype, mixup, acc, distributed=True,
+                             trunk=trunk)
             augmented = None
             if replaced:
                 augmented = [rows(inputs["augmented"], rank, world)]

@@ -7,8 +7,9 @@ Phases, each fatal on failure:
   1. device: a CUDA card is required (no CPU path); prints the card's name
      and power limit and the TF32 switches;
   2. build: compiles the photometric kernel (csrc/photometric.cu), the
-     probe kernels (csrc/probe.cu) and the BatchNorm kernels
-     (csrc/batchnorm.cu) with nvcc, one process each, together;
+     probe kernels (csrc/probe.cu), the BatchNorm kernels
+     (csrc/batchnorm.cu) and the upsample kernels (csrc/upsample.cu) with
+     nvcc, one process each, together;
   3. kernel: the photometric kernel against its plain PyTorch version on
      the card, all 64 gate combinations (hue, saturation, brightness,
      contrast, blur, flip), uint8 and bf16 input, 224x224, 448x796 and
@@ -24,6 +25,14 @@ Phases, each fatal on failure:
      each timed beside its bound and its twin;
      their launches are counted on each later phase's paths, and every
      path that trains must launch them;
+  3c. up: the SGP-Mixer's upsample kernels (kernels/upsample.py) at both
+     mixers' shapes (25 -> 50, 50 -> 100) and both cells' batches (8, 4),
+     bf16 from the mixer's channels-innermost view: the forward within 1
+     bf16 ulp of F.interpolate at its terms' magnitude, the backward within
+     one rounding of float64 and the same bits twice; then each direction
+     timed from a CUDA graph of 20 calls beside F.interpolate (forward and
+     ATen's backward), the fp32 align-corners GEMM with its casts, the
+     bytes' bound and one empty launch; the phases 5-7 must launch both;
   3b. probe: the probe tool (tdeed_tpu_torch.tools.profile_probe) on the
      card at its full shape (112, 112, 24, 800), which must launch each of
      the three probe kernels; then each kernel against its plain version at
@@ -206,7 +215,7 @@ PHASE9_ARCHS = ("rny002_gsm", "rny002", "rny008_gsm")  # FineDiving_small at ful
 PHASE9_STEPS = 3  # train steps of each phase-9 trunk, and of each 9b setting
 EXPORT_CLIPS = 4  # the exported programs' batch (phase 9c)
 EXPORT_CALLS = 10
-KERNEL_SOURCES = ("photometric", "probe", "batchnorm")
+KERNEL_SOURCES = ("photometric", "probe", "batchnorm", "upsample")
 # phase 11: the host data tools over the committed JPEG fixtures
 DECODE_BATCH = 100  # frames of each timed decode_batch
 DECODE_THREADS = (1, 4, 8)
@@ -527,6 +536,135 @@ def bn_kernel_phase(torch):
         del x, gy
         torch.cuda.empty_cache()
     return out
+
+
+# the SGP-Mixers' upsample in each cell: (batch, channels, T_in, T_out)
+UP_SHAPES = (("FineDiving_small", ((8, 368, 25, 50), (8, 368, 50, 100))),
+             ("SoccerNetBall_challenge1", ((4, 368, 25, 50), (4, 368, 50, 100))))
+UP_CALLS = 20  # calls a CUDA graph holds, for the upsample timings
+
+
+def _graph_ms(torch, fn, reps=5):
+    """Device ms a call of ``fn``, replayed from a CUDA graph of UP_CALLS
+    calls (as the training step's graphs run the mixers), after two eager
+    warm-up calls on a side stream."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(UP_CALLS):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / (reps * UP_CALLS)
+
+
+def up_kernel_phase(torch):
+    """The upsample kernels (csrc/upsample.cu) at the mixers' shapes in both
+    cells, bf16 from the mixer's (B, T, C) activation seen as (B, C, T):
+    the forward against F.interpolate, the backward against float64 and
+    against itself; each direction timed beside F.interpolate's ("plain"),
+    the fp32 GEMM by the align-corners matrix with its casts ("library"),
+    the bytes' bound and one empty launch."""
+    import torch.nn.functional as F
+
+    from tdeed_tpu_torch.kernels import upsample
+    from tdeed_tpu_torch.utils.profiling import PEAK_BYTES_PER_S
+
+    dev = torch.device("cuda")
+    out = {"name": "upsample", "route": "cuda", "source": "tdeed_tpu_torch/csrc/upsample.cu",
+           "replaces": None, "max_abs_err": 0.0, "cells": {}}
+    one = torch.empty(1, device=dev)
+    empty_ms = _graph_ms(torch, lambda: one.zero_())
+    worst = {"forward_ulps": 0.0, "backward_bound_share": 0.0}
+    for cell, shapes in UP_SHAPES:
+        rows = []
+        for b, c, t_in, t_out in shapes:
+            gen = torch.Generator(device=dev).manual_seed(SEED + t_in)
+            x = torch.randn((b, t_in, c), generator=gen, device=dev).to(
+                torch.bfloat16).transpose(1, 2)
+            dy = torch.randn((b, c, t_out), generator=gen, device=dev).to(torch.bfloat16)
+            y = upsample.upsample_forward(x, t_out)
+            want = F.interpolate(x, size=t_out, mode="linear", align_corners=True)
+            mag = F.interpolate(x.abs().float(), size=t_out, mode="linear", align_corners=True)
+            ulps = float(((y.double() - want.double()).abs()
+                          / torch.exp2(torch.floor(torch.log2(mag.double())) - 7)).max())
+            same = float((y == want).float().mean())
+            dx = upsample.upsample_backward(dy, t_in)
+            x64 = x.detach().double().requires_grad_()
+            y64 = F.interpolate(x64, size=t_out, mode="linear", align_corners=True)
+            want64 = torch.autograd.grad(y64, x64, dy.double())[0]
+            mag64 = torch.autograd.grad(y64, x64, dy.double().abs())[0]
+            bound = (torch.exp2(torch.floor(torch.log2(mag64)) - 7)
+                     + (2 * t_out / (t_in - 1) + 3) * 2.0 ** -24 * mag64)
+            share = float(((dx.double() - want64).abs() / bound).max())
+            twice = torch.equal(dx, upsample.upsample_backward(dy, t_in))
+            eager_err = float((torch.ops.aten.upsample_linear1d_backward(
+                dy, [t_out], [b, c, t_in], True).double() - want64).abs().max())
+            err = float((dx.double() - want64).abs().max())
+            out["max_abs_err"] = max(out["max_abs_err"], err)
+            worst["forward_ulps"] = max(worst["forward_ulps"], ulps)
+            worst["backward_bound_share"] = max(worst["backward_bound_share"], share)
+            log(f"[up] {cell} {(b, c, t_in, t_out)}: forward {ulps:.2f} bf16 ulps of "
+                f"F.interpolate at most, {same:.2%} bit-equal; backward {share:.3f} of its "
+                f"bound at most, max abs err {err:.3g} against float64 (ATen's "
+                f"{eager_err:.3g}), the same bits twice {twice}")
+            if ulps > 1.0 or share > 1.0 or not twice:
+                fail(f"up {cell} {(b, c, t_in, t_out)}: the kernels disagree")
+
+            w = torch.zeros((t_out, t_in), dtype=torch.float64)
+            for j, terms in enumerate(upsample.gather_pairs(t_in, t_out)):
+                for i, wt in terms:
+                    w[i, j] += wt
+            w = w.float().to(dev)
+            wt_t = w.t().contiguous()
+            nbytes = 2 * b * c * (t_in + t_out)
+            row = {"shape": [b, c, t_in, t_out], "bound_ms": nbytes / PEAK_BYTES_PER_S * 1e3,
+                   "empty_launch_ms": empty_ms}
+            for way, kernel, plain, gemm in (
+                    ("forward", lambda: upsample.upsample_forward(x, t_out),
+                     lambda: F.interpolate(x, size=t_out, mode="linear", align_corners=True),
+                     lambda: torch.matmul(x.float(), wt_t).to(torch.bfloat16)),
+                    ("backward", lambda: upsample.upsample_backward(dy, t_in),
+                     lambda: torch.ops.aten.upsample_linear1d_backward(
+                         dy, [t_out], [b, c, t_in], True),
+                     lambda: torch.matmul(dy.float(), w).to(torch.bfloat16))):
+                row[way] = {"ms": _graph_ms(torch, kernel), "plain_ms": _graph_ms(torch, plain),
+                            "library_ms": _graph_ms(torch, gemm)}
+            rows.append(row)
+            log(f"[up] {cell} {(b, c, t_in, t_out)} device ms a call (graph of {UP_CALLS}): "
+                + "; ".join(f"{way} {row[way]['ms']:.4f}, F.interpolate "
+                            f"{row[way]['plain_ms']:.4f}, fp32 GEMM {row[way]['library_ms']:.4f}"
+                            for way in ("forward", "backward"))
+                + f"; bound {row['bound_ms']:.5f} (bytes), empty launch {empty_ms:.4f}")
+            del x, dy, y, want, dx
+        out["cells"][cell] = rows
+    out.update(worst)
+    per_step = {cell: {k: sum(r[way][k] for r in rows for way in ("forward", "backward"))
+                       for k in ("ms", "plain_ms", "library_ms")}
+                for cell, rows in out["cells"].items()}
+    out["per_micro_batch"] = per_step
+    out["ms"] = per_step["FineDiving_small"]["ms"]
+    out["plain_ms"] = per_step["FineDiving_small"]["plain_ms"]
+    out["library_ms"] = per_step["FineDiving_small"]["library_ms"]
+    log(f"[up] both mixers, forward and backward, a micro-batch: {json.dumps(per_step)}")
+    return out
+
+
+def up_launches():
+    from tdeed_tpu_torch.kernels import upsample
+
+    return upsample.upsample_forward.launches, upsample.upsample_backward.launches
 
 
 def _k1_plan(plan):
@@ -2594,6 +2732,7 @@ def main() -> int:
     build_phase()
     k1 = kernel_phase(torch)
     bn = bn_kernel_phase(torch)
+    up = up_kernel_phase(torch)
     probes = probe_phase(torch)
     torch.cuda.empty_cache()
     agreement_phase(torch)
@@ -2605,6 +2744,7 @@ def main() -> int:
         f"{cfg.dtype} compute")
     photometric.launches = 0
     bn_marks = [("start", bn_launches())]
+    up_start = up_launches()
     serve_phase(torch, cfg, model)
     phase5b = spot_phase(torch, cfg, model, smi)
     train_phase(torch, cfg, model, step)
@@ -2615,6 +2755,10 @@ def main() -> int:
     phase7 = cli_phase(torch, smi)
     flagship_launches = photometric.launches
     bn_marks.append(("phases 5-7 (FineDiving_small)", bn_launches()))
+    up["launches"] = [n - n0 for n, n0 in zip(up_launches(), up_start)]
+    log(f"[up] phases 5-7 launched the forward and backward kernels {up['launches']} times")
+    if not all(up["launches"]):
+        fail(f"the flagship's training paths launched no upsample kernel: {up['launches']}")
     if flagship_launches < TRAIN_STEPS + 2 * ACC_STEPS:
         fail(f"the training steps launched the photometric kernel {flagship_launches} times")
     torch.cuda.empty_cache()
@@ -2686,7 +2830,7 @@ def main() -> int:
         "jax", "jaxlib", "flax", "optax", "tdeed_tpu", "tools"))
     if leaked:
         fail(f"JAX, the JAX package or the repo's JAX-side tools were imported: {leaked}")
-    kernels = [k1, bn, *probes]
+    kernels = [k1, bn, up, *probes]
     for k in kernels:
         k["lib_ms"] = k["library_ms"]
     log(json.dumps({"kernels": kernels}))

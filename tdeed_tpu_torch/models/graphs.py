@@ -41,7 +41,8 @@ the backward after's static input gradient, so no replay copies between
 layers. The trunk reads its frames from ``frames_buffer``, which the
 training step's photometric kernel writes into. Neither warm-up nor
 capture counts a kernel launch; a replay adds the launches its capture
-recorded to each counter (``kernels/batchnorm``'s ``bn_*.launches``). The
+recorded to each counter (``kernels/batchnorm``'s ``bn_*.launches``,
+``kernels/upsample``'s ``upsample_*.launches``). The
 BatchNorm kernels' ticket counters of the graphs are their own
 (``batchnorm.captured_tickets``).
 
@@ -80,7 +81,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
-from tdeed_tpu_torch.kernels import batchnorm
+from tdeed_tpu_torch.kernels import batchnorm, upsample
 from tdeed_tpu_torch.models.common import frozen_running_stats
 from tdeed_tpu_torch.parallel import mesh
 
@@ -89,7 +90,7 @@ WARMUP = 2  # eager forwards and backwards before a capture
 
 # the kernel launch counters a replay adds its captured launches to
 _COUNTERS = (batchnorm.bn_stats, batchnorm.bn_apply, batchnorm.bn_grad_sums,
-             batchnorm.bn_grad_apply)
+             batchnorm.bn_grad_apply, upsample.upsample_forward, upsample.upsample_backward)
 
 
 def eager_reason(model, device) -> Optional[str]:

@@ -2,14 +2,17 @@
 (port of tdeed_tpu/ops/temporal.py).
 
 The JAX package expresses pooling and upsampling as static gathers and
-matmuls for XLA; here they are torch's own operators with the reference
-semantics (ref: model/modules.py:64,236).
+matmuls for XLA; here pooling is torch's own operator and upsampling two
+CUDA kernels on the card (kernels/upsample.py), F.interpolate elsewhere,
+with the reference semantics (ref: model/modules.py:64,236).
 """
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from tdeed_tpu_torch.kernels import upsample
 
 
 def adaptive_max_pool1d(x: torch.Tensor, t_out: int) -> torch.Tensor:
@@ -19,12 +22,23 @@ def adaptive_max_pool1d(x: torch.Tensor, t_out: int) -> torch.Tensor:
     return F.adaptive_max_pool1d(x.transpose(1, 2), t_out).transpose(1, 2)
 
 
+def tracing() -> bool:
+    """Whether ``torch.compile`` or ``torch.export`` is tracing the caller:
+    a traced program keeps ATen's operator, and an exported one must load
+    without this package's kernels."""
+    return torch.compiler.is_compiling() or torch.compiler.is_exporting()
+
+
 def linear_upsample(x: torch.Tensor, t_out: int) -> torch.Tensor:
     """nn.Upsample(mode='linear', align_corners=True) of (B, T, C) to
-    (B, t_out, C)."""
-    y = F.interpolate(
-        x.transpose(1, 2), size=t_out, mode="linear", align_corners=True
-    )
+    (B, t_out, C): the kernels for a CUDA tensor outside a trace, else
+    F.interpolate. Either way the result is a (B, t_out, C) view of a
+    dense (B, C, t_out) tensor."""
+    xt = x.transpose(1, 2)
+    if not tracing() and x.is_cuda:
+        y = upsample.linear_upsample(xt, t_out)
+    else:
+        y = F.interpolate(xt, size=t_out, mode="linear", align_corners=True)
     return y.transpose(1, 2)
 
 

@@ -11,10 +11,9 @@ conftest:
   change, every BatchNorm running statistic and batch count; at a tiny
   FineDiving-shaped config and a two-heads SoccerNet-Ball-shaped one, at
   ``acc_grad_iter`` 1 and 2. Two eager runs of the same steps may differ
-  (atomic adds in the temporal upsample's backward, cuDNN's algorithms):
-  the graphed run is held to the eager one within a bf16 ulp of each
-  tensor, or four times the two eager runs' own gap where that is wider,
-  and both gaps are printed.
+  (cuDNN's algorithms): the graphed run is held to the eager one within a
+  bf16 ulp of each tensor, or four times the two eager runs' own gap where
+  that is wider, and both gaps are printed.
 - A second input shape captures again and stays correct; past
   ``MAX_KEYS`` it runs eagerly and stays correct.
 - The graphs' BatchNorm ticket counters read zero after the replays, and

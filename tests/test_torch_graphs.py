@@ -1,7 +1,8 @@
 """The rule that picks CUDA graphs or eager layers in training
 (tdeed_tpu_torch/models/graphs.py), the step record's counts of them, the
-benchmark's ``train_step.graph_share`` and ``device.reserved_gib.train``
-readers, the gradients a replay hands autograd, and the step's host draws
+benchmark's ``train_step.graph_share``, ``device.reserved_gib.train`` and
+``device.graph_pool_gib.train`` readers, the gradients a replay hands
+autograd, and the step's host draws
 leaving for the card from pinned memory without a host wait, on the CPU.
 The graphs themselves run on the card only: tests/test_torch_graphs_gpu.py.
 """
@@ -295,6 +296,46 @@ def test_reserved_memory_reader_reads_nothing_without_a_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(torch.cuda, "max_memory_reserved", lambda *a: 3 * 2**30)
     assert read({}) == 3.0
+
+
+# --- the graphs' memory pool ----------------------------------------------------
+
+
+def _segment(pool, size, device=0):
+    return {"device": device, "segment_pool_id": pool, "total_size": size}
+
+
+SEGMENTS = [_segment((0, 0), 7 << 20), _segment((1, 0), 3 << 30), _segment([1, 0], 2 << 20),
+            _segment((2, 0), 5 << 20, device=1), _segment((0, 4), 11 << 20)]
+
+
+def _read_pool(monkeypatch, segments):
+    read = load_reader("device.graph_pool_gib.train")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "memory_snapshot", lambda: segments)
+    return read({})
+
+
+def test_graph_pool_reader(monkeypatch):
+    """The reader sums every segment outside the default pool, on every
+    card and whatever form the pool's id takes, in GiB."""
+    assert _read_pool(monkeypatch, SEGMENTS) == 3 + 18 / 1024
+
+
+@pytest.mark.parametrize("segments", [[], [_segment((0, 0), 7 << 30)]])
+def test_graph_pool_reader_leaves_out_the_default_pool(monkeypatch, segments):
+    """The default pool holds the eager step's blocks: with no private
+    pool the graphs hold nothing."""
+    assert _read_pool(monkeypatch, segments) == 0.0
+
+
+def test_graph_pool_reader_reads_nothing_without_the_count(monkeypatch):
+    """Without a card the allocator keeps no count, and the reader asks
+    for no snapshot."""
+    read = load_reader("device.graph_pool_gib.train")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(torch.cuda, "memory_snapshot", lambda: pytest.fail("read a snapshot"))
+    assert read({}) is None
 
 
 # --- the draws reach the card without a host wait --------------------------------

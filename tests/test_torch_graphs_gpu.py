@@ -18,6 +18,10 @@ conftest:
   ``MAX_KEYS`` it runs eagerly and stays correct.
 - The graphs' BatchNorm ticket counters read zero after the replays, and
   a dropped model frees its graphs without the garbage collector.
+- The benchmark's ``device.graph_pool_gib.train`` reader, which sums the
+  allocator's segments outside the default pool, grows by exactly the
+  bytes of a new model's graph pool after its capture, replays leave it
+  so, and reading it resets no peak statistic.
 - A traced flagship step (FineDiving_small) puts the graphs' device time
   under ``trunk``, ``backward.trunk``, ``backward.temporal`` and
   ``backward.heads``, within 5% of the eager step's (the heads' backward,
@@ -177,6 +181,42 @@ def test_graph_ticket_counters_read_zero_after_the_replays(cuda):
     assert tickets is not None and int(tickets.abs().sum()) == 0
     assert all(int(t.abs().sum()) == 0 for t in batchnorm._TICKETS.values())
     assert not batchnorm._CAPTURING
+
+
+def _pool_segments(pool) -> int:
+    """The allocator's bytes in ``pool``'s segments on the card, from its
+    snapshot."""
+    return sum(s["total_size"] for s in torch.cuda.memory_snapshot()
+               if tuple(s["segment_pool_id"]) == tuple(pool))
+
+
+def test_the_pool_count_is_the_allocators_bytes_of_the_pool(cuda):
+    """The reader grows by the bytes of the model's pool after its capture
+    (the other private pools, earlier tests' graphs, stay as they were),
+    replays and a second shape captured into the same pool keep it equal,
+    and reading it resets no peak statistic."""
+    import gc
+
+    from benchmark.run import load_reader
+
+    read = load_reader("device.graph_pool_gib.train")
+    gc.collect()
+    torch.cuda.empty_cache()  # releases the pools of graphs already dropped
+    before = round(read({}) * 2**30)
+    model, step = _trainer("snb")
+    step(_batches("snb", 1)[0])
+    torch.cuda.synchronize()
+    g = model._graphs
+    first = _pool_segments(g._pool)
+    peak = torch.cuda.max_memory_reserved()
+    assert first > 0 and round(read({}) * 2**30) == before + first
+    for batch in _batches("snb", 2, seed=1):
+        step(batch)  # replays allocate nothing in the pool
+    assert _pool_segments(g._pool) == first and round(read({}) * 2**30) == before + first
+    step(_batches("snb", 1, seed=2, b=1)[0])  # a new shape captures into the same pool
+    assert len(g.chains) == 2
+    assert round(read({}) * 2**30) == before + _pool_segments(g._pool) >= before + first
+    assert torch.cuda.max_memory_reserved() >= peak
 
 
 def test_a_dropped_model_frees_its_graphs_without_the_collector(cuda):

@@ -9,7 +9,8 @@ Phases, each fatal on failure:
   2. build: compiles the photometric kernel (csrc/photometric.cu), the
      probe kernels (csrc/probe.cu), the BatchNorm kernels
      (csrc/batchnorm.cu) and the upsample kernels (csrc/upsample.cu) with
-     nvcc, one process each, together;
+     nvcc, one process each, together, and the squeeze-and-excitation
+     kernels (csrc/se.cu);
   3. kernel: the photometric kernel against its plain PyTorch version on
      the card, all 64 gate combinations (hue, saturation, brightness,
      contrast, blur, flip), uint8 and bf16 input, 224x224, 448x796 and
@@ -33,6 +34,14 @@ Phases, each fatal on failure:
      timed from a CUDA graph of 20 calls beside F.interpolate (forward and
      ATen's backward), the fp32 align-corners GEMM with its casts, the
      bytes' bound and one empty launch; the phases 5-7 must launch both;
+  3d. se: the squeeze-and-excitation kernels (kernels/se.py) at every
+     block shape of the three benchmark cells, bf16 in channels_last: the
+     product bit for bit ATen's, the gate's sums against float64, x's
+     gradient within 1 bf16 ulp of the twin, SEModule's forward bit for bit
+     the stock ops'; each kernel, and the SE's forward and backward through
+     them and through the stock ops SEModule runs on the CPU, timed from a
+     CUDA graph of 20 calls beside the bytes' bound; the phases 5-7 must
+     launch all three;
   3b. probe: the probe tool (tdeed_tpu_torch.tools.profile_probe) on the
      card at its full shape (112, 112, 24, 800), which must launch each of
      the three probe kernels; then each kernel against its plain version at
@@ -215,7 +224,7 @@ PHASE9_ARCHS = ("rny002_gsm", "rny002", "rny008_gsm")  # FineDiving_small at ful
 PHASE9_STEPS = 3  # train steps of each phase-9 trunk, and of each 9b setting
 EXPORT_CLIPS = 4  # the exported programs' batch (phase 9c)
 EXPORT_CALLS = 10
-KERNEL_SOURCES = ("photometric", "probe", "batchnorm", "upsample")
+KERNEL_SOURCES = ("photometric", "probe", "batchnorm", "upsample", "se")
 # phase 11: the host data tools over the committed JPEG fixtures
 DECODE_BATCH = 100  # frames of each timed decode_batch
 DECODE_THREADS = (1, 4, 8)
@@ -659,6 +668,116 @@ def up_kernel_phase(torch):
     out["library_ms"] = per_step["FineDiving_small"]["library_ms"]
     log(f"[up] both mixers, forward and backward, a micro-batch: {json.dumps(per_step)}")
     return out
+
+
+# the trunk's SE in each cell: (frames a micro-batch, ((H, W, C, blocks), ...))
+SE_SHAPES = (("FineDiving_small", 800, ((56, 56, 24, 1), (28, 28, 56, 1), (14, 14, 152, 4),
+                                        (7, 7, 368, 7))),
+             ("SoccerNetBall_challenge1", 400, ((112, 199, 24, 1), (56, 100, 56, 1),
+                                                (28, 50, 152, 4), (14, 25, 368, 7))),
+             ("SoccerNetBall_challenge2", 200, ((112, 199, 64, 1), (56, 100, 128, 3),
+                                                (28, 50, 320, 8), (14, 25, 768, 2))))
+# passes over the tensor: each kernel's, and the SE's with ATen's mean
+SE_PASSES = {"excite": 2, "grad_sums": 2, "grad_apply": 2}
+SE_ALL_PASSES = 7
+
+
+def se_kernel_phase(torch):
+    """The SE kernels (csrc/se.cu) at every block shape of the three cells,
+    bf16 in channels_last: the product bit for bit ATen's, the gate's sums
+    against float64 (fp32 sums: 1e-5 of the terms' magnitudes), x's
+    gradient within 1 bf16 ulp of its twin, SEModule's forward bit for bit
+    the stock ops'; then each kernel, and the SE's forward and backward
+    through the kernels and through ATen's stock ops ("plain"), device ms a
+    call from a CUDA graph, beside the bound (its bf16 passes at 3.35
+    TB/s)."""
+    from tdeed_tpu_torch.kernels import se
+    from tdeed_tpu_torch.models.regnet import SEModule
+    from tdeed_tpu_torch.utils.profiling import PEAK_BYTES_PER_S
+
+    dev = torch.device("cuda")
+    out = {"name": "se", "route": "cuda", "source": "tdeed_tpu_torch/csrc/se.cu",
+           "replaces": None, "library_ms": None, "max_abs_err": 0.0, "cells": {}}
+    for cell, n, shapes in SE_SHAPES:
+        rows = []
+        for h, w, c, blocks in shapes:
+            gen = torch.Generator(device=dev).manual_seed(SEED + c)
+            x = (torch.randn((n, h, w, c), generator=gen, device=dev) * 1.5 + 0.3).to(
+                torch.bfloat16).permute(0, 3, 1, 2)
+            gy = torch.randn((n, h, w, c), generator=gen, device=dev).to(
+                torch.bfloat16).permute(0, 3, 1, 2)
+            s = torch.rand((n, c), generator=gen, device=dev).to(torch.bfloat16)
+            dm = torch.randn((n, c), generator=gen, device=dev).to(torch.bfloat16)
+            y = se.se_excite(x, s)
+            sums = se.se_grad_sums(gy, x)
+            dx = se.se_grad_apply(gy, s, dm)
+            torch.cuda.synchronize()
+            terms = gy.double() * x.double()
+            rel = float(((sums.double() - terms.sum((2, 3))).abs()
+                         / terms.abs().sum((2, 3))).max())
+            del terms
+            if rel > 1e-5:
+                fail(f"se {cell} {(n, c, h, w)}: the kernel's sums are {rel:.2e} off float64")
+            if not torch.equal(y, x * s[:, :, None, None]):
+                fail(f"se {cell} {(n, c, h, w)}: the product is not ATen's")
+            err = _check_close(torch, dx, se.se_grad_apply_reference(gy, s, dm),
+                               f"se {cell} {(n, c, h, w)} dx")
+            out["max_abs_err"] = max(out["max_abs_err"], err)
+            del y, sums, dx
+
+            module = SEModule(c, max(1, round(c / 4))).to(dev)
+            xg = x.detach().requires_grad_()
+
+            def stock_forward():
+                z = module.fc2(torch.relu(module.fc1(xg.mean(dim=(2, 3), keepdim=True))))
+                return xg * torch.sigmoid(z)
+
+            def stock():
+                return torch.autograd.grad(stock_forward(), xg, gy)
+
+            with torch.no_grad():
+                if not torch.equal(module(x), stock_forward()):
+                    fail(f"se {cell} {(n, c, h, w)}: SEModule's forward is not the stock ops'")
+
+            kernels = {
+                "excite": lambda: se.se_excite(x, s),
+                "grad_sums": lambda: se.se_grad_sums(gy, x),
+                "grad_apply": lambda: se.se_grad_apply(gy, s, dm),
+            }
+            nbytes = 2 * x.numel()
+            row = {"shape": [n, c, h, w], "blocks": blocks, "kernels": {}}
+            for k, fn in kernels.items():
+                row["kernels"][k] = {"ms": _graph_ms(torch, fn),
+                                     "bound_ms": SE_PASSES[k] * nbytes / PEAK_BYTES_PER_S * 1e3}
+            row["ms"] = _graph_ms(torch, lambda: torch.autograd.grad(module(xg), xg, gy))
+            row["plain_ms"] = _graph_ms(torch, stock)
+            row["bound_ms"] = SE_ALL_PASSES * nbytes / PEAK_BYTES_PER_S * 1e3
+            rows.append(row)
+            log(f"[se] {cell} {(n, c, h, w)} x {blocks} blocks, device ms a call (graph of "
+                f"{UP_CALLS}): " + "; ".join(
+                    f"{k} {v['ms']:.4f} ({v['bound_ms'] / v['ms']:.0%} of {v['bound_ms']:.4f})"
+                    for k, v in row["kernels"].items())
+                + f"; SE forward and backward {row['ms']:.4f} against ATen's {row['plain_ms']:.4f}"
+                f" ({row['plain_ms'] / row['ms']:.2f}x), bound {row['bound_ms']:.4f} "
+                f"({row['bound_ms'] / row['ms']:.0%})")
+            if row["ms"] >= row["plain_ms"]:
+                fail(f"se {cell} {(n, c, h, w)}: the kernels' SE is no faster than ATen's")
+            del x, gy, xg, module
+            torch.cuda.empty_cache()
+        total = {k: sum(r[k] * r["blocks"] for r in rows) for k in ("ms", "plain_ms", "bound_ms")}
+        out["cells"][cell] = {"shapes": rows, **total}
+        log(f"[se] {cell}, every block a micro-batch: the kernels' SE {total['ms']:.3f} ms, "
+            f"ATen's {total['plain_ms']:.3f}, bound {total['bound_ms']:.3f} "
+            f"({total['bound_ms'] / total['ms']:.0%})")
+    out["ms"] = out["cells"]["SoccerNetBall_challenge2"]["ms"]
+    out["plain_ms"] = out["cells"]["SoccerNetBall_challenge2"]["plain_ms"]
+    return out
+
+
+def se_launches():
+    from tdeed_tpu_torch.kernels import se
+
+    return [f.launches for f in (se.se_excite, se.se_grad_sums, se.se_grad_apply)]
 
 
 def up_launches():
@@ -2733,6 +2852,7 @@ def main() -> int:
     k1 = kernel_phase(torch)
     bn = bn_kernel_phase(torch)
     up = up_kernel_phase(torch)
+    se_row = se_kernel_phase(torch)
     probes = probe_phase(torch)
     torch.cuda.empty_cache()
     agreement_phase(torch)
@@ -2745,6 +2865,7 @@ def main() -> int:
     photometric.launches = 0
     bn_marks = [("start", bn_launches())]
     up_start = up_launches()
+    se_start = se_launches()
     serve_phase(torch, cfg, model)
     phase5b = spot_phase(torch, cfg, model, smi)
     train_phase(torch, cfg, model, step)
@@ -2759,6 +2880,11 @@ def main() -> int:
     log(f"[up] phases 5-7 launched the forward and backward kernels {up['launches']} times")
     if not all(up["launches"]):
         fail(f"the flagship's training paths launched no upsample kernel: {up['launches']}")
+    se_row["launches"] = [n - n0 for n, n0 in zip(se_launches(), se_start)]
+    log(f"[se] phases 5-7 launched excite, grad_sums, grad_apply "
+        f"{se_row['launches']} times")
+    if not all(se_row["launches"]):
+        fail(f"the flagship's training paths launched no SE kernel: {se_row['launches']}")
     if flagship_launches < TRAIN_STEPS + 2 * ACC_STEPS:
         fail(f"the training steps launched the photometric kernel {flagship_launches} times")
     torch.cuda.empty_cache()
@@ -2830,7 +2956,7 @@ def main() -> int:
         "jax", "jaxlib", "flax", "optax", "tdeed_tpu", "tools"))
     if leaked:
         fail(f"JAX, the JAX package or the repo's JAX-side tools were imported: {leaked}")
-    kernels = [k1, bn, up, *probes]
+    kernels = [k1, bn, up, se_row, *probes]
     for k in kernels:
         k["lib_ms"] = k["library_ms"]
     log(json.dumps({"kernels": kernels}))

@@ -42,7 +42,8 @@ layers. The trunk reads its frames from ``frames_buffer``, which the
 training step's photometric kernel writes into. Neither warm-up nor
 capture counts a kernel launch; a replay adds the launches its capture
 recorded to each counter (``kernels/batchnorm``'s ``bn_*.launches``,
-``kernels/upsample``'s ``upsample_*.launches``). The
+``kernels/upsample``'s ``upsample_*.launches``, ``kernels/se``'s
+``se_*.launches``). The
 BatchNorm kernels' ticket counters of the graphs are their own
 (``batchnorm.captured_tickets``).
 
@@ -81,7 +82,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
-from tdeed_tpu_torch.kernels import batchnorm, upsample
+from tdeed_tpu_torch.kernels import batchnorm, se, upsample
 from tdeed_tpu_torch.models.common import frozen_running_stats
 from tdeed_tpu_torch.parallel import mesh
 
@@ -90,7 +91,8 @@ WARMUP = 2  # eager forwards and backwards before a capture
 
 # the kernel launch counters a replay adds its captured launches to
 _COUNTERS = (batchnorm.bn_stats, batchnorm.bn_apply, batchnorm.bn_grad_sums,
-             batchnorm.bn_grad_apply, upsample.upsample_forward, upsample.upsample_backward)
+             batchnorm.bn_grad_apply, upsample.upsample_forward, upsample.upsample_backward,
+             se.se_excite, se.se_grad_sums, se.se_grad_apply)
 
 
 def eager_reason(model, device) -> Optional[str]:

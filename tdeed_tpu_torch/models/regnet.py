@@ -31,8 +31,10 @@ import torch
 import torch.nn as nn
 from torch.utils.checkpoint import checkpoint
 
+from tdeed_tpu_torch.kernels import se
 from tdeed_tpu_torch.models.common import Conv2d, SplitBatchNorm, frozen_running_stats
 from tdeed_tpu_torch.models.shift import GatedShift
+from tdeed_tpu_torch.ops.temporal import tracing
 
 ARCH_PARAMS = {
     # timm regnety_002 / regnety_008 generation parameters, under the JAX
@@ -88,7 +90,10 @@ class ConvBN(nn.Module):
 
 class SEModule(nn.Module):
     """Squeeze-and-excitation; the reduction width comes from the block
-    *input* width (timm regnet: rd = round(in_chs * 0.25))."""
+    *input* width (timm regnet: rd = round(in_chs * 0.25)). A CUDA input
+    outside a ``torch.compile``/``torch.export`` trace runs the SE kernels
+    (kernels/se.py), forward and backward; the CPU and traces run these
+    stock ops."""
 
     def __init__(self, channels: int, rd_channels: int):
         super().__init__()
@@ -98,10 +103,14 @@ class SEModule(nn.Module):
             _kaiming_fan_out(fc)
             nn.init.zeros_(fc.bias)
 
+    def gate(self, m):
+        """Each channel's gate from the (N, C, 1, 1) mean."""
+        return torch.sigmoid(self.fc2(torch.relu(self.fc1(m))))
+
     def forward(self, x):
-        s = x.mean(dim=(2, 3), keepdim=True)
-        s = self.fc2(torch.relu(self.fc1(s)))
-        return x * torch.sigmoid(s)
+        if not tracing() and x.is_cuda:
+            return se.squeeze_excite(x, self.gate, tuple(self.parameters()))
+        return x * self.gate(x.mean(dim=(2, 3), keepdim=True))
 
 
 class YBlock(nn.Module):
